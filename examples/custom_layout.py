@@ -17,9 +17,13 @@ import numpy as np
 
 sys.path.insert(0, __file__.rsplit("/", 2)[0])
 
-from loops_tpu.utils.platform import ensure_platform  # noqa: E402
+from loops_tpu.utils.platform import (  # noqa: E402
+    enable_compilation_cache,
+    ensure_platform,
+)
 
 ensure_platform()
+enable_compilation_cache()
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402

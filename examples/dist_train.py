@@ -1,7 +1,8 @@
 #!/usr/bin/env python
 """Distributed GCN training over a device mesh.
 
-Runs on whatever devices exist — a TPU slice, or a virtual CPU mesh:
+Runs on whatever devices exist — the GPUs of one host, or a virtual CPU
+mesh:
 
     XLA_FLAGS=--xla_force_host_platform_device_count=8 \
     LOOPS_PLATFORM=cpu python examples/dist_train.py --epochs 20
@@ -16,9 +17,13 @@ import numpy as np
 
 sys.path.insert(0, __file__.rsplit("/", 2)[0])
 
-from loops_tpu.utils.platform import ensure_platform  # noqa: E402
+from loops_tpu.utils.platform import (  # noqa: E402
+    enable_compilation_cache,
+    ensure_platform,
+)
 
 ensure_platform()
+enable_compilation_cache()
 
 
 def main(argv=None):
@@ -36,20 +41,11 @@ def main(argv=None):
     p.add_argument("--epochs", type=int, default=30)
     p.add_argument("--lr", type=float, default=1e-2)
     p.add_argument("--exchange", default="all_gather",
-                   choices=["all_gather", "halo", "hier"])
-    p.add_argument("--hosts", type=int, default=2,
-                   help="host-axis size for --exchange hier")
+                   choices=["all_gather", "halo"])
     args = p.parse_args(argv)
 
     ds = ogb.load(args.dataset, scale=args.scale)
-    if args.exchange == "hier":
-        import jax as _jax
-
-        from loops_tpu.parallel import make_mesh_hier
-        chips = len(_jax.devices()) // args.hosts
-        mesh = make_mesh_hier(args.hosts, chips)
-    else:
-        mesh = make_mesh()
+    mesh = make_mesh()
     n_dev = int(np.prod([mesh.shape[a] for a in mesh.axis_names]))
     print(f"dataset={ds.name} nodes={ds.graph.num_nodes:,} "
           f"edges={ds.graph.num_edges:,} devices={n_dev} "

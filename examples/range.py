@@ -1,8 +1,7 @@
 #!/usr/bin/env python
 """Layout/iteration demo (reference: examples/range.cu demos the range
-abstraction): shows how tile/atom iteration is expressed as arrays on
-TPU — the per-thread ranges of the reference become vectorized index
-math."""
+abstraction): shows how tile/atom iteration is expressed as arrays —
+the per-thread ranges of the reference become vectorized index math."""
 from __future__ import annotations
 
 import sys

@@ -1,8 +1,7 @@
 #!/usr/bin/env python
 """SAXPY demo (reference: examples/saxpy.cu — the grid-stride-loop hello
-world). On TPU the grid-stride loop *is* the vector unit: one fused XLA
-op, plus the same computation as an explicit Pallas kernel for the
-kernel-authoring hello world."""
+world). Here the grid-stride loop is one fused XLA elementwise op,
+checked against the same arithmetic on the host."""
 from __future__ import annotations
 
 import sys
@@ -11,9 +10,13 @@ import numpy as np
 
 sys.path.insert(0, __file__.rsplit("/", 2)[0])
 
-from loops_tpu.utils.platform import ensure_platform  # noqa: E402
+from loops_tpu.utils.platform import (  # noqa: E402
+    enable_compilation_cache,
+    ensure_platform,
+)
 
 ensure_platform()
+enable_compilation_cache()
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -23,35 +26,16 @@ def saxpy_xla(a, x, y):
     return a * x + y
 
 
-def saxpy_pallas(a, x, y):
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    def kernel(a_ref, x_ref, y_ref, o_ref):
-        o_ref[:] = a_ref[0, 0] * x_ref[:] + y_ref[:]
-
-    n = x.shape[0]
-    return pl.pallas_call(
-        kernel,
-        out_shape=jax.ShapeDtypeStruct(x.shape, x.dtype),
-        in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM),
-                  pl.BlockSpec(memory_space=pltpu.VMEM),
-                  pl.BlockSpec(memory_space=pltpu.VMEM)],
-        out_specs=pl.BlockSpec(memory_space=pltpu.VMEM),
-        interpret=jax.default_backend() != "tpu",
-    )(jnp.full((1, 1), a, x.dtype), x, y)
-
-
 def main():
     n = 1 << 16
     rng = np.random.default_rng(0)
     x = jnp.asarray(rng.normal(size=(8, n // 8)).astype(np.float32))
     y = jnp.asarray(rng.normal(size=(8, n // 8)).astype(np.float32))
     a = 2.5
-    out1 = jax.jit(saxpy_xla)(a, x, y)
-    out2 = saxpy_pallas(a, x, y)
-    err = float(jnp.abs(out1 - out2).max())
-    print(f"saxpy n={n}: xla vs pallas max err {err:.2e}")
+    out = np.asarray(jax.jit(saxpy_xla)(a, x, y))
+    ref = a * np.asarray(x, np.float64) + np.asarray(y, np.float64)
+    err = float(np.abs(out - ref).max())
+    print(f"saxpy n={n}: device vs host max err {err:.2e}")
     print("Errors: 0" if err < 1e-6 else "Errors: >0")
     return 0 if err < 1e-6 else 1
 

@@ -1,7 +1,8 @@
 #!/usr/bin/env python
 """SpMM example runner (reference: examples/spmm.cu) — CSV + validation.
 
-    python examples/spmm.py --rows 4096 --feature-dim 128 --impl pallas
+    python examples/spmm.py --rows 4096 --feature-dim 128 --format bcsr \
+        --impl pallas
 """
 from __future__ import annotations
 
@@ -12,9 +13,13 @@ import numpy as np
 
 sys.path.insert(0, __file__.rsplit("/", 2)[0])
 
-from loops_tpu.utils.platform import ensure_platform  # noqa: E402
+from loops_tpu.utils.platform import (  # noqa: E402
+    enable_compilation_cache,
+    ensure_platform,
+)
 
 ensure_platform()
+enable_compilation_cache()
 
 from loops_tpu.formats import BCSR  # noqa: E402
 from loops_tpu.io import filepath, market  # noqa: E402

@@ -20,9 +20,13 @@ import numpy as np
 
 sys.path.insert(0, __file__.rsplit("/", 2)[0])
 
-from loops_tpu.utils.platform import ensure_platform  # noqa: E402
+from loops_tpu.utils.platform import (  # noqa: E402
+    enable_compilation_cache,
+    ensure_platform,
+)
 
 ensure_platform()
+enable_compilation_cache()
 
 from loops_tpu.formats import BCSR, CSC, DIA, ELL  # noqa: E402
 from loops_tpu.io import filepath, market  # noqa: E402
@@ -40,12 +44,10 @@ def main(argv=None):
     p.add_argument("--sparsity", type=float, default=0.01)
     p.add_argument("--schedule", default="merge_path",
                    choices=["row_mapped", "group_mapped", "work_oriented",
-                            "merge_path", "sorted_flat", "auto"])
+                            "merge_path", "auto"])
     p.add_argument("--format", default="csr",
                    choices=["csr", "csc", "coo", "ell", "bcsr", "dia",
                             "auto"])
-    p.add_argument("--impl", default="xla",
-                   choices=["xla", "pallas", "pallas2", "pallas3"])
     p.add_argument("--block", type=int, default=512)
     p.add_argument("--validate", action="store_true")
     p.add_argument("--rigorous", action="store_true")
@@ -76,33 +78,21 @@ def main(argv=None):
 
     # single-strategy formats implement row_mapped only (the operator
     # rejects knobs it would otherwise silently ignore); coerce the CLI
-    # default with a notice. bcsr keeps --impl (pallas = the
-    # register-accumulate kernel); csc/dia are XLA-only.
-    if args.format in ("csc", "dia", "bcsr"):
-        if args.schedule != "row_mapped":
-            print(f"note: {args.format} implements row_mapped only; "
-                  f"overriding --schedule {args.schedule}",
-                  file=sys.stderr)
-            args.schedule = "row_mapped"
-        if args.format != "bcsr" and args.impl != "xla":
-            print(f"note: {args.format} is XLA-only; overriding --impl",
-                  file=sys.stderr)
-            args.impl = "xla"
-    if args.format == "coo" and args.impl != "xla":
-        print("note: coo is XLA-only; overriding --impl", file=sys.stderr)
-        args.impl = "xla"
+    # default with a notice
+    if args.format in ("csc", "dia", "bcsr") and args.schedule != "row_mapped":
+        print(f"note: {args.format} implements row_mapped only; "
+              f"overriding --schedule {args.schedule}", file=sys.stderr)
+        args.schedule = "row_mapped"
 
     x = generate.make_input_vector(csr.shape[1])
-    y = np.asarray(spmv(mat, x, schedule=args.schedule, block=args.block,
-                        impl=args.impl))
+    y = np.asarray(spmv(mat, x, schedule=args.schedule, block=args.block))
 
     import jax.numpy as jnp
     from loops_tpu.ops.spmv import _op_cache
-    op = _op_cache(mat)[(args.schedule, args.block, args.impl)]
+    op = _op_cache(mat)[(args.schedule, args.block)]
     elapsed = chained_ms_pair(op._fn, jnp.asarray(x), iters=10)
 
-    kernel = f"{args.format}_{args.schedule}" + (
-        "_pallas" if args.impl == "pallas" else "")
+    kernel = f"{args.format}_{args.schedule}"
     print(f"{kernel},{dataset},{csr.shape[0]},{csr.shape[1]},{csr.nnz},"
           f"{elapsed:.5f}")
 

@@ -17,9 +17,13 @@ import numpy as np
 
 sys.path.insert(0, __file__.rsplit("/", 2)[0])
 
-from loops_tpu.utils.platform import ensure_platform  # noqa: E402
+from loops_tpu.utils.platform import (  # noqa: E402
+    enable_compilation_cache,
+    ensure_platform,
+)
 
 ensure_platform()
+enable_compilation_cache()
 
 
 def main(argv=None):
@@ -60,8 +64,7 @@ def main(argv=None):
 
     opt = optax.adam(args.lr)
     if args.model == "gcn":
-        # batch steps per dispatch: remote-device round-trip (~1 s)
-        # otherwise dwarfs the 75 ms step (models/train.py)
+        # several steps per dispatch (models/train.py)
         spc = max(args.epochs // 10, 1) if args.steps_per_call is None \
             else args.steps_per_call
         step = jax.jit(T.make_train_epochs(model, opt, ds.features,

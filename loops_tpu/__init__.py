@@ -1,5 +1,5 @@
-"""loops-tpu: a TPU-native framework for load-balanced irregular (sparse)
-computation and GNN message passing.
+"""loops-tpu: a JAX framework for load-balanced irregular (sparse)
+computation and GNN message passing, run on NVIDIA GPUs.
 
 Built from scratch in JAX/XLA/Pallas with the capabilities of gunrock/loops
 (PPoPP 2023, "A Programming Model for GPU Load Balancing") as its functional
@@ -13,9 +13,9 @@ include/loops/schedule.hxx):
   ``num_tiles``/``num_atoms``/``tile_offsets`` — plus the flat re-binning
   partitioner.
 - **schedule**: planners that map balanced groups of (tile, atom) work onto
-  the TPU grid: row_mapped, group_mapped, work_oriented, merge_path.
-- **ops**: SpMV / SpMM / SDDMM built on the planners — pure-XLA paths for
-  portability plus Pallas kernels for the hot paths.
+  device programs: row_mapped, group_mapped, work_oriented, merge_path.
+- **ops**: SpMV / SpMM / SDDMM built on the planners — XLA paths, plus a
+  Pallas (Triton) kernel for block-sparse SpMM.
 - **models**: GNN message passing (gather -> edge transform -> segment
   aggregate), GCN, GraphSAGE, neighbor sampling.
 - **parallel**: multi-chip edge-partitioned graphs, shard_map halo exchange.

@@ -1,12 +1,12 @@
 """Shared helpers for the host-side sparse containers.
 
 The reference keeps containers as owning host/device structs
-(reference: include/loops/container/formats.hxx). On TPU the idiomatic
-split is: **host containers are plain NumPy** (cheap slicing, conversions,
+(reference: include/loops/container/formats.hxx). Here the split is:
+**host containers are plain NumPy** (cheap slicing, conversions,
 I/O) and device residency is a late, explicit step (``as_jax``) so that the
-jit boundary sees static shapes. Index dtype defaults to int32 — TPUs have
-no appetite for 64-bit indices in the vector unit — with an overflow guard
-at construction (the reference guards at load time, market.hxx:143-167).
+jit boundary sees static shapes. Index dtype defaults to int32 (JAX runs
+without 64-bit types unless ``jax_enable_x64`` is set) with an overflow
+guard at construction (the reference guards at load time, market.hxx:143-167).
 """
 from __future__ import annotations
 
@@ -22,7 +22,7 @@ def as_index_array(a, name: str = "index array") -> np.ndarray:
     if a.size and (a.max(initial=0) > np.iinfo(INDEX_DTYPE).max):
         raise OverflowError(
             f"{name} exceeds {INDEX_DTYPE.__name__} range; "
-            "rebuild with 64-bit indices is not supported on TPU"
+            "64-bit indices are not supported on the device path"
         )
     return np.ascontiguousarray(a, dtype=INDEX_DTYPE)
 

@@ -6,10 +6,8 @@ R x C blocks with dense per-block payloads. The reference's two-pass
 conversion (discover non-empty block columns, then scatter) becomes a
 single vectorized unique+scatter here.
 
-On TPU this is the format that feeds the MXU directly: with R, C chosen as
-multiples of the (8, 128) register tile, each stored block is a dense
-sub-matmul operand — sparsity outside blocks, full systolic utilization
-inside.
+Each stored block is a dense sub-matmul operand — sparsity outside
+blocks, dense tensor-core work inside (ops/kernels/spmm_bcsr.py).
 """
 from __future__ import annotations
 

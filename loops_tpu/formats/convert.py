@@ -45,7 +45,8 @@ def indices_to_offsets(indices: np.ndarray, num_tiles: int) -> np.ndarray:
 def offsets_to_indices_jax(offsets, num_atoms: int):
     """Device-side offsets -> segment ids with a static output size.
 
-    TPU cannot ``repeat`` with data-dependent counts, so this uses the
+    A jitted program cannot ``repeat`` with data-dependent counts, so
+    this uses the
     standard static-shape identity: seg_id[a] = (# offsets[1:-1] <= a),
     computed as a searchsorted over the atom iota. O(n log r), fully
     vectorized, jit-safe.

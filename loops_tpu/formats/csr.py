@@ -49,7 +49,7 @@ class CSR:
         return np.diff(self.offsets)
 
     def row_ids(self) -> np.ndarray:
-        """Per-nonzero row index (the COO row array) — the TPU analog of
+        """Per-nonzero row index (the COO row array) — the materialized
         ``tile_of`` lookups; kernels use it as segment ids."""
         return convert.offsets_to_indices(self.offsets)
 

@@ -5,10 +5,10 @@ include/loops/container/dia.hxx:69-188): values stored per stored diagonal,
 with a ``count_diagonals`` preflight probe (reference: dia.hxx:98-116 —
 their hash-set probe is a vectorized ``np.unique`` here).
 
-Storage convention (TPU-friendly, row-major): ``vals[d, i] = A[i, i +
+Storage convention (row-major): ``vals[d, i] = A[i, i +
 diag_offsets[d]]`` for ``0 <= i < rows`` with zeros where the column falls
-outside the matrix. Each diagonal is a contiguous length-``rows`` lane —
-SpMV over DIA is then a dense shifted-multiply, no gathers at all.
+outside the matrix. Each diagonal is a contiguous length-``rows`` row —
+SpMV over DIA is then a dense shifted multiply.
 """
 from __future__ import annotations
 

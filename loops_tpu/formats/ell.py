@@ -5,9 +5,9 @@ include/loops/container/ell.hxx:45-145): sentinel-padded row-major planes,
 a ``max_nnz_per_row`` preflight probe guarding against memory blow-up on
 skewed matrices, and host CSR bucket-fill.
 
-ELL is the *most* TPU-friendly sparse format: the planes are already
-static-shape dense arrays, so gathers and FMAs vectorize over full
-(8, 128) registers with a sentinel mask instead of control flow.
+ELL is the most regular sparse format: the planes are already
+static-shape dense arrays, so gathers and FMAs vectorize with a sentinel
+mask instead of control flow.
 """
 from __future__ import annotations
 
@@ -90,7 +90,7 @@ class ELL:
         return out
 
     def as_jax(self, pad_rows_to: int = 8, pad_pitch_to: int = 1):
-        """Stage planes on device, padded to TPU tile multiples.
+        """Stage planes on device, padded to the given multiples.
 
         Sentinel columns are rewritten to index 0 (with value 0) so device
         gathers are always in-bounds; the value plane's zeros make the

@@ -3,7 +3,6 @@ graph datasets actually ship in. Comment-tolerant, pandas C-engine fast
 path with numpy fallback, same overflow guards as the .mtx loader."""
 from __future__ import annotations
 
-import io as _io
 import os
 
 import numpy as np
@@ -25,22 +24,14 @@ def load_edges(path_or_bytes, num_nodes: int | None = None,
             data = f.read()
     else:
         data = bytes(path_or_bytes)
-    sep = b"," if b"," in data[:1000] else None
 
-    arr = None
-    try:
-        import pandas as pd
-
-        df = pd.read_csv(_io.BytesIO(data), header=None, comment=comment,
-                         sep="," if sep else r"\s+", engine="c",
-                         dtype=np.float64)
-        arr = df.to_numpy()
-    except Exception:
-        lines = [ln for ln in data.splitlines()
-                 if ln.strip() and not ln.lstrip().startswith(
-                     comment.encode())]
-        arr = np.array([ln.replace(b",", b" ").split() for ln in lines],
-                       dtype=np.float64)
+    rows = [ln.replace(b",", b" ").split() for ln in data.splitlines()
+            if ln.strip() and not ln.lstrip().startswith(comment.encode())]
+    # a row without the weight column gets weight 1
+    width = max((len(r) for r in rows), default=2)
+    arr = np.ones((len(rows), width), np.float64)
+    for i, r in enumerate(rows):
+        arr[i, :len(r)] = np.asarray(r, np.float64)
     if arr.ndim != 2 or arr.shape[1] < 2:
         raise ValueError("edge list needs at least src and dst columns")
 

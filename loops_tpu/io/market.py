@@ -15,7 +15,6 @@ to pandas' C CSV engine, then to a pure-NumPy splitter.
 """
 from __future__ import annotations
 
-import io as _io
 import os
 
 import numpy as np
@@ -63,15 +62,9 @@ def _parse_body_fast(body, nnz: int, has_values: bool):
         arr = None
     if arr is None:
         data = body.tobytes() if isinstance(body, memoryview) else body
-        try:
-            import pandas as pd
-            df = pd.read_csv(_io.BytesIO(data), sep=r"\s+", header=None,
-                             nrows=nnz, dtype=np.float64, engine="c")
-            arr = df.to_numpy()
-        except Exception:
-            flat = np.array(data.split(), dtype=np.float64)
-            per = flat.size // nnz if nnz else ncols
-            arr = flat[: nnz * per].reshape(nnz, per)
+        flat = np.array(data.split(), dtype=np.float64)
+        per = flat.size // nnz if nnz else ncols
+        arr = flat[: nnz * per].reshape(nnz, per)
     if arr.shape[0] != nnz:
         raise MatrixMarketError(
             f"expected {nnz} records, found {arr.shape[0]}")

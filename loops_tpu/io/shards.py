@@ -157,71 +157,23 @@ class StreamedSpMM:
     out-of-core analog of the device-side halo exchange.
     """
 
-    def __init__(self, sharded: ShardedCSR, schedule: str = "row_mapped",
-                 block_work: int = 512, dtype=None):
+    def __init__(self, sharded: ShardedCSR):
         import jax
         import jax.numpy as jnp
 
         self.sharded = sharded
-        self.schedule = schedule
         self.rows_pd = _round_up(sharded.max_rows, 8)
         self.nnz_pd = _round_up(sharded.max_nnz, 128)
         self.gat_pd = _round_up(sharded.max_gather, 8)
 
-        rows_pd, nnz_pd = self.rows_pd, self.nnz_pd
+        rows_pd = self.rows_pd
 
-        if schedule == "row_mapped":
-            def fn(b, xg):
-                prod = b["vals"][:, None] * xg[b["indices"]]
-                return jax.ops.segment_sum(prod, b["rid"],
-                                           num_segments=rows_pd,
-                                           indices_are_sorted=True)
-            self._jit = jax.jit(fn)
-        elif schedule == "merge_path":
-            # flat Pallas kernel, one executable for all shards: every
-            # shard is padded to (rows_pd, gat_pd) and staged with the
-            # store-wide max group count / row-window height
-            self._flat_bufs, self._flat_fn = self._build_flat(
-                block_work, dtype)
-            self._jit = jax.jit(self._flat_fn)
-        else:
-            raise ValueError(
-                "StreamedSpMM supports schedule='row_mapped' or "
-                "'merge_path'; use DistSpMM for mesh execution")
+        def fn(b, xg):
+            prod = b["vals"][:, None] * xg[b["indices"]]
+            return jax.ops.segment_sum(prod, b["rid"], num_segments=rows_pd,
+                                       indices_are_sorted=True)
+        self._jit = jax.jit(fn)
         self._jnp = jnp
-
-    def _padded_shard_csr(self, p: int) -> CSR:
-        """Shard p over the common (rows_pd, gat_pd) padded space."""
-        s = self.sharded.shard(p)
-        off = np.asarray(s["offsets"], dtype=np.int64)
-        off_pd = np.full(self.rows_pd + 1, off[-1], dtype=np.int64)
-        off_pd[: len(off)] = off
-        return CSR((self.rows_pd, self.gat_pd), off_pd,
-                   np.asarray(s["indices"]), np.asarray(s["vals"]))
-
-    def _build_flat(self, block_work: int, dtype):
-        from loops_tpu.layout import CsrLayout
-        from loops_tpu.ops.kernels.spmm_flat import flat_spmm_pallas
-        from loops_tpu.schedule.plans import FlatBlockPlan
-
-        def stage(p, pad_groups=None, pad_R=None):
-            csr_p = self._padded_shard_csr(p)
-            plan = FlatBlockPlan.merge_path(
-                CsrLayout.from_csr(csr_p), block_work=block_work)
-            return flat_spmm_pallas(csr_p, plan, dtype=dtype,
-                                    pad_groups=pad_groups, pad_R=pad_R)
-
-        # pass 1 (host-only, transient): the store-wide staging maxima —
-        # plan arrays live one shard at a time (partition-then-plan)
-        metas = [stage(p)[1].meta for p in range(self.sharded.num_shards)]
-        groups = max(m["groups"] for m in metas)
-        R = max(m["R"] for m in metas)
-        self._flat_pad = (groups, R)
-        self._flat_stage = stage
-        # one compiled executable: restaging any shard with the common
-        # pads yields identical shapes
-        _, fn = stage(0, pad_groups=groups, pad_R=R)
-        return None, fn
 
     def _shard_bufs(self, p: int):
         jnp = self._jnp
@@ -246,12 +198,7 @@ class StreamedSpMM:
         if out is None:
             out = np.empty((self.sharded.shape[0], F), np.float32)
         for p in range(self.sharded.num_shards):
-            if self.schedule == "merge_path":
-                groups, R = self._flat_pad
-                bufs, _ = self._flat_stage(p, pad_groups=groups, pad_R=R)
-                s = self.sharded.shard(p)
-            else:
-                bufs, s = self._shard_bufs(p)
+            bufs, s = self._shard_bufs(p)
             xg = np.zeros((self.gat_pd, F), np.float32)
             xg[: len(s["gather"])] = X[np.asarray(s["gather"])]
             y = np.asarray(self._jit(bufs, jnp.asarray(xg)))

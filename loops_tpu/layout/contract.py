@@ -6,7 +6,7 @@ processing units: a nonzero, a stored block). Any object satisfying this
 contract drives any schedule (reference: include/loops/container/
 layout.hxx:16-58).
 
-The TPU-first twist: where the reference's contract is a set of per-thread
+The twist: where the reference's contract is a set of per-thread
 device *functions* (``tile_begin(t)``/``tile_of(a)`` called from divergent
 threads), ours is a set of *arrays* — ``tile_offsets`` [num_tiles+1] is the
 single universal artifact, and ``atom_tile_ids`` [num_atoms] (the
@@ -56,7 +56,7 @@ class Layout:
 
     def atom_tile_ids(self) -> np.ndarray:
         """Materialized ``tile_of`` for every atom — the segment-id array
-        that replaces per-atom binary search on TPU."""
+        that replaces per-atom binary search."""
         from loops_tpu.formats.convert import offsets_to_indices
         return offsets_to_indices(self.tile_offsets())
 

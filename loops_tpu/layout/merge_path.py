@@ -8,7 +8,7 @@ it along equally spaced diagonals yields per-processor (tile, atom) start
 coordinates such that every processor gets the same amount of
 ``tiles + atoms`` total work, regardless of row skew.
 
-TPU-first realization: the per-diagonal binary search collapses to **one
+Realization: the per-diagonal binary search collapses to **one
 vectorized searchsorted over the monotone key ``offsets[t+1] + t + 1``** —
 all partition boundaries are found in a single fused op on host or device,
 instead of P divergent device-side binary searches. This file is the analog

@@ -6,7 +6,7 @@ base layout's flat atom enumeration into K-atom tiles with pure closed-form
 math — no precompute — and exposes ``base`` so kernels can recover the
 original tile of an atom for output addressing.
 
-TPU-first difference: where the reference recovers the original tile with a
+Difference: where the reference recovers the original tile with a
 per-atom device binary search (``base().tile_of(atom)``), we materialize
 ``base_tile_ids`` once on the host — it is exactly the COO row-index array
 (SURVEY.md §7) — and the device sees only dense segment ids.

@@ -1,7 +1,7 @@
 """Graph/matrix reordering for gather locality.
 
-On TPU the SpMM bottleneck for irregular graphs is the random gather of
-B rows (~2KB transfers at random addresses). Bandwidth recovers when
+The SpMM cost for irregular graphs is the random gather of B rows.
+Locality recovers when
 consecutive edges hit nearby rows, which is a *plan-time* property:
 reorder the matrix once, keep a permutation, undo it on outputs.
 

@@ -1,54 +1,29 @@
 """Checkpoint / resume for model and optimizer state.
 
 The reference has no checkpointing (SURVEY.md §5 — its only persisted
-artifacts are benchmark CSVs); a production training/serving framework
-needs it, so params/opt-state pytrees get orbax-backed save/restore with
-a plain-numpy fallback when orbax is unavailable.
+artifacts are benchmark CSVs); params/opt-state pytrees are saved as
+host numpy arrays in one pickle file.
 """
 from __future__ import annotations
 
-import os
 import pickle
+
+
+def _file(path: str) -> str:
+    return path if path.endswith(".pkl") else path + ".pkl"
 
 
 def save(path: str, state) -> None:
     """Save a pytree (params, opt_state, step, ...) to ``path``."""
     import jax
 
-    state = jax.device_get(state)
-    try:
-        import orbax.checkpoint as ocp
-
-        path = os.path.abspath(path)
-        ckptr = ocp.PyTreeCheckpointer()
-        ckptr.save(path, state, force=True)
-    except Exception:
-        with open(path if path.endswith(".pkl") else path + ".pkl",
-                  "wb") as f:
-            pickle.dump(state, f)
+    with open(_file(path), "wb") as f:
+        pickle.dump(jax.device_get(state), f)
 
 
 def restore(path: str, like=None):
-    """Restore a pytree saved by :func:`save`. ``like`` (an example
-    pytree) guides orbax's type restoration when given."""
-    try:
-        import orbax.checkpoint as ocp
-
-        path = os.path.abspath(path)
-        if os.path.isdir(path):
-            ckptr = ocp.PyTreeCheckpointer()
-            if like is not None:
-                import jax
-
-                args = ocp.args.PyTreeRestore(  # type: ignore[attr-defined]
-                    item=jax.device_get(like))
-                try:
-                    return ckptr.restore(path, args)
-                except Exception:
-                    return ckptr.restore(path)
-            return ckptr.restore(path)
-    except Exception:
-        pass
-    p = path if path.endswith(".pkl") else path + ".pkl"
-    with open(p, "rb") as f:
+    """Restore a pytree saved by :func:`save` (``like`` is accepted for
+    API compatibility; the pickle carries its own structure)."""
+    del like
+    with open(_file(path), "rb") as f:
         return pickle.load(f)

@@ -86,8 +86,7 @@ class GAT:
             # param-side: s_src[n,h] = sum_d (hW)[n,h,d] a_src[h,d]
             #           = h @ V_src with V_src[:,h] = W_h @ a_src[h] —
             # one [N,d_in]x[d_in,H] matmul instead of an [N,H,D] einsum
-            # whose 4-lane-minor layout (and its VJP broadcasts) sat in
-            # the train step's autodiff glue (tpu-performance.md §8)
+            # (and its VJP broadcasts) in the train step's autodiff glue
             w3 = layer["w"].reshape(d_in, H, d_out)
             v_src = jnp.einsum("ihd,hd->ih", w3, layer["a_src"])
             v_dst = jnp.einsum("ihd,hd->ih", w3, layer["a_dst"])

@@ -53,16 +53,14 @@ class GCN:
     """
 
     def __init__(self, graph: Graph, dims, dropout: float = 0.5,
-                 schedule: str = "auto", impl: str = "xla",
-                 remat: bool = False, dtype=None,
+                 schedule: str = "auto", remat: bool = False, dtype=None,
                  precompute_first: bool = False, loss_rows=None):
         self.dims = list(dims)
         self.dropout = dropout
         self.remat = remat
         self.precompute_first = precompute_first
         self.propagate = aggregate_operator(graph, op="gcn",
-                                            schedule=schedule, impl=impl,
-                                            dtype=dtype)
+                                            schedule=schedule, dtype=dtype)
         # loss_rows: the training loss only reads logits at these rows
         # (the train mask), so the LAST layer's propagation — forward
         # and backward — restricts to A[rows, :] exactly
@@ -77,8 +75,7 @@ class GCN:
                 masked_aggregate_operator,
             )
             op = masked_aggregate_operator(graph, loss_rows, op="gcn",
-                                           schedule=schedule, impl=impl,
-                                           dtype=dtype)
+                                           schedule=schedule, dtype=dtype)
             self.loss_rows = op.rows
             self.propagate_masked = op
 

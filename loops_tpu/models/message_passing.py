@@ -25,45 +25,24 @@ def _transpose_csr(csr):
                csc.vals)
 
 
-def _route_aggregation(adj, dtype, op: str = "gcn") -> tuple[str, str]:
-    """Resolve ``schedule="auto"`` to the measured-best aggregation
-    kernel for this platform/operand/model mode (the model-tier analog
-    of the reference's launch_box arch keying, launch_box.hxx:176-214).
-
-    TPU + bf16 + symmetric GCN normalization -> the flat merge-path
-    Pallas SpMM (GCN train step 72.7 -> 43.8 ms measured); mean
-    aggregation (SAGE) measured the OPPOSITE way once its throughput
-    row actually routed bf16 (round 4: flat 72.2 ms vs group_mapped
-    54.5 — the non-symmetric mean operator pays two flat plans and its
-    win inverts), so ``op="mean"`` stays on the group_mapped planes.
-    Everything else -> group_mapped XLA (fastest exact path, and the
-    safe choice on CPU where interpret-mode Pallas is debug-speed
-    only).
-    """
-    import jax
-
-    from loops_tpu.formats import CSR
-    if (jax.default_backend() == "tpu" and isinstance(adj, CSR)
-            and dtype == "bfloat16" and op != "mean"):
-        return "merge_path", "pallas"
-    return "group_mapped", "xla"
+# ``schedule="auto"`` aggregation: XLA's fused gather + sorted segment
+# sum. On an H100 80GB HBM3 (700 W) it beat the degree-class planes and a
+# merge-path Triton kernel in the arxiv-sized GCN train step (2.79 vs
+# 3.47 vs 4.13 ms f32, 2.42 vs 4.85 vs 2.90 ms bf16; scripts/kernel_ab.py).
+AGGREGATION_SCHEDULE = "row_mapped"
 
 
 def aggregate_operator(graph: Graph, op: str = "sum",
-                       schedule: str = "auto", impl: str = "xla",
-                       custom_vjp: bool = True, dtype=None):
+                       schedule: str = "auto", custom_vjp: bool = True,
+                       dtype=None):
     """Build ``h -> aggregated`` for sum/mean aggregation (one SpMM).
 
-    Default ``schedule="auto"`` routes to the measured-best kernel
-    (``_route_aggregation``): the flat Pallas merge-path SpMM on TPU in
-    bf16 mode (fastest measured), group_mapped degree-class planes
-    otherwise (2.3x faster than the scatter path on power-law graphs
-    at F=128, docs/experimentation.md).
+    Default ``schedule="auto"`` means ``AGGREGATION_SCHEDULE``.
 
-    ``custom_vjp=True`` replaces autodiff's transposed-gather (a TPU
-    scatter, ~10x slower than the forward) with the mathematically
-    equal forward-style SpMM over A^T, planned with the same schedule —
-    training backward then costs the same as forward.
+    ``custom_vjp=True`` replaces autodiff's transposed gather (a
+    scatter) with the mathematically equal forward-style SpMM over A^T,
+    planned with the same schedule — training backward then costs the
+    same as forward.
     """
     if op == "sum":
         adj = graph.adj
@@ -74,8 +53,8 @@ def aggregate_operator(graph: Graph, op: str = "sum",
     else:
         raise ValueError(f"aggregate_operator: unsupported op {op!r}")
     if schedule == "auto":
-        schedule, impl = _route_aggregation(adj, dtype, op)
-    fwd_op = SpMMOperator(adj, schedule=schedule, impl=impl, dtype=dtype)
+        schedule = AGGREGATION_SCHEDULE
+    fwd_op = SpMMOperator(adj, schedule=schedule, dtype=dtype)
     if not custom_vjp:
         return fwd_op
 
@@ -91,7 +70,7 @@ def aggregate_operator(graph: Graph, op: str = "sum",
         and np.array_equal(adj.indices, adj_t.indices)
         and np.allclose(adj.vals, adj_t.vals))
     bwd_op = fwd_op if symmetric else SpMMOperator(
-        adj_t, schedule=schedule, impl=impl, dtype=dtype)
+        adj_t, schedule=schedule, dtype=dtype)
 
     @jax.custom_vjp
     def prop(h):
@@ -127,9 +106,22 @@ def _take_rows_csr(csr, idx: np.ndarray):
                csr.vals[pos])
 
 
+def _mask_to_rows(rows, num_nodes: int) -> np.ndarray:
+    """Row indices from either explicit indices or a node mask.
+
+    A bool or float array, or any 0/1 array of length ``num_nodes``
+    (integer masks included), is a mask; anything else is taken as row
+    indices.
+    """
+    rows = np.asarray(rows)
+    is_mask = rows.dtype == bool or rows.dtype.kind == "f" or (
+        rows.ndim == 1 and len(rows) == num_nodes
+        and bool(np.isin(rows, (0, 1)).all()))
+    return np.nonzero(rows > 0)[0] if is_mask else rows
+
+
 def masked_aggregate_operator(graph: Graph, rows, op: str = "gcn",
-                              schedule: str = "auto", impl: str = "xla",
-                              dtype=None):
+                              schedule: str = "auto", dtype=None):
     """Aggregation restricted to the output rows the loss reads.
 
     Full-graph training only consumes logits at the labeled rows (the
@@ -154,15 +146,13 @@ def masked_aggregate_operator(graph: Graph, rows, op: str = "gcn",
         adj = graph.gcn_normalized().adj
     else:
         raise ValueError(f"masked_aggregate_operator: unsupported {op!r}")
-    rows = np.asarray(rows)
-    if rows.dtype == bool or (rows.dtype.kind == "f"):
-        rows = np.nonzero(rows > 0)[0]
+    rows = _mask_to_rows(rows, graph.num_nodes)
     sub = _take_rows_csr(adj, rows)
     if schedule == "auto":
-        schedule, impl = _route_aggregation(sub, dtype, op)
-    fwd_op = SpMMOperator(sub, schedule=schedule, impl=impl, dtype=dtype)
+        schedule = AGGREGATION_SCHEDULE
+    fwd_op = SpMMOperator(sub, schedule=schedule, dtype=dtype)
     sub_t = _transpose_csr(sub)
-    bwd_op = SpMMOperator(sub_t, schedule=schedule, impl=impl, dtype=dtype)
+    bwd_op = SpMMOperator(sub_t, schedule=schedule, dtype=dtype)
 
     import jax
 

@@ -3,7 +3,7 @@
 Layer: h' = relu(W_self h + W_neigh mean_{j in N(i)} h_j + b). The
 full-graph path aggregates with one row-normalized SpMM; the minibatch
 path consumes the static-shape [b, k] samples from models/sampling.py —
-the mean over the fanout axis is a dense reduction, the TPU-native
+the mean over the fanout axis is a dense reduction, the static-shape
 replacement for the reference-style variable-length frontier walk.
 """
 from __future__ import annotations
@@ -28,16 +28,14 @@ def init_sage(key, dims):
 
 class GraphSAGE:
     def __init__(self, graph: Graph, dims,
-                 schedule: str = "auto", impl: str = "xla", dtype=None):
+                 schedule: str = "auto", dtype=None):
         """``dtype="bfloat16"`` selects the throughput aggregation mode
-        (bf16 operand rounding, f32 accumulation) and lets
-        ``schedule="auto"`` route to the flat Pallas SpMM on TPU — the
-        same contract as GCN's ``dtype``."""
+        (bf16 operand rounding, f32 accumulation) — the same contract
+        as GCN's ``dtype``."""
         self.graph = graph
         self.dims = list(dims)
         self.aggregate = aggregate_operator(graph, op="mean",
-                                            schedule=schedule, impl=impl,
-                                            dtype=dtype)
+                                            schedule=schedule, dtype=dtype)
 
     def init(self, key):
         return init_sage(key, self.dims)
@@ -64,7 +62,7 @@ class GraphSAGE:
         ``features`` is the full [N, F] node matrix. Frontier d+1 expands
         frontier d by fanout[d], so grouping hop-(d+1) representations by
         their parent is a static reshape [len(frontier_d), fanout_d, F] —
-        the TPU-native replacement for variable-length frontier walks.
+        the static-shape replacement for variable-length frontier walks.
         Layer l transforms depth-d representations for all remaining
         depths (the standard minibatch-SAGE recursion).
         """

@@ -1,7 +1,7 @@
 """Neighbor sampling — static-shape uniform k-neighbor sampling.
 
-GraphSAGE-style minibatch sampling re-designed for TPU: instead of the
-GPU-style variable-length frontier lists, every fanout produces a dense
+GraphSAGE-style minibatch sampling with static shapes: instead of
+variable-length frontier lists, every fanout produces a dense
 [batch, k] neighbor matrix (sampling with replacement; isolated nodes
 self-loop), so the whole sampled block runs under jit with static shapes.
 """
@@ -42,8 +42,9 @@ def sampled_block(graph: Graph, seeds, fanouts, key):
 
     Returns a list of ([frontier_size, k] neighbor, frontier) pairs from
     the seeds outward; ``frontier[i+1] = unique-free flatten`` of hop i's
-    samples (kept with duplicates — static shapes beat dedup on TPU;
-    duplicated compute is the documented trade).
+    samples (kept with duplicates for static shapes; duplicated compute
+    is the documented trade, not yet measured against dedup on the
+    GPU).
     """
     import jax
     import jax.numpy as jnp

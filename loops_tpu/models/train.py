@@ -26,14 +26,12 @@ def accuracy(logits, labels, mask=None):
     return hit.mean()
 
 
-def make_train_step(model, optimizer, features, labels, train_mask,
-                    weight_decay: float = 0.0):
-    """Full-graph training step: (params, opt_state, rng) -> updated +
-    loss. jit-compiled by the caller (or use as-is; it closes over static
-    data)."""
-    import jax
+def make_loss_fn(model, features, labels, train_mask,
+                 weight_decay: float = 0.0):
+    """The training loss ``loss_fn(params, rng)`` that
+    ``make_train_step`` differentiates: masked mean cross-entropy over
+    the train rows, plus optional L2."""
     import jax.numpy as jnp
-    import optax
 
     features = jnp.asarray(features)
     # models may hoist static input work out of the step (e.g. GCN's
@@ -70,6 +68,20 @@ def make_train_step(model, optimizer, features, labels, train_mask,
             loss = loss + weight_decay * l2
         return loss
 
+    return loss_fn
+
+
+def make_train_step(model, optimizer, features, labels, train_mask,
+                    weight_decay: float = 0.0):
+    """Full-graph training step: (params, opt_state, rng) -> updated +
+    loss. jit-compiled by the caller (or use as-is; it closes over static
+    data)."""
+    import jax
+    import optax
+
+    loss_fn = make_loss_fn(model, features, labels, train_mask,
+                           weight_decay)
+
     def step(params, opt_state, rng):
         rng, sub = jax.random.split(rng)
         loss, grads = jax.value_and_grad(loss_fn)(params, sub)
@@ -84,9 +96,8 @@ def make_train_epochs(model, optimizer, features, labels, train_mask,
                       steps_per_call: int = 10, weight_decay: float = 0.0):
     """``steps_per_call`` training steps per device dispatch.
 
-    On remote-attached devices each dispatch costs ~1 s of round-trip
-    latency — 13x the 75 ms step itself on ogbn-arxiv — so epochs are
-    batched through one ``lax.fori_loop`` per call. Returns
+    Epochs are batched through one ``lax.fori_loop`` per call, so the
+    host dispatches once per ``steps_per_call`` steps. Returns
     ``epochs(params, opt_state, rng) -> (params, opt_state, rng, loss)``
     (loss from the final step); jit it once.
     """
@@ -111,8 +122,7 @@ def evaluate(model, params, features, labels, mask):
     import jax.numpy as jnp
 
     # cache one jitted apply per model: eager evaluation dispatches
-    # per-op (ruinous on remote-attached devices — measured 1.3 s/epoch
-    # of a 75 ms/step training loop going to un-jitted evals)
+    # every op separately
     ap = getattr(model, "_jit_apply", None)
     if ap is None:
         ap = jax.jit(model.apply)

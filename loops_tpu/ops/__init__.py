@@ -1,6 +1,5 @@
 """Device operators: SpMV / SpMM / SDDMM / segmented primitives."""
 from loops_tpu.ops.attention import GroupedAttentionAggregate  # noqa: F401
-from loops_tpu.ops.gather import gather1d  # noqa: F401
 from loops_tpu.ops.segment import (  # noqa: F401
     segment_max,
     segment_mean,

@@ -7,8 +7,8 @@ The textbook GAT pipeline materializes per-edge arrays and scatters:
                                                        ops + 2 gathers)
     out   = segment_sum(alpha[..,None] * hw[src], dst) [N, H, D] (scatter)
 
-On TPU every per-edge segment op pays the scalar-scatter slow path. But
-under the group_mapped schedule a destination row is one contiguous
+Every per-edge segment op is a scatter. But under the group_mapped
+schedule a destination row is one contiguous
 window of a degree-class plane — the softmax normalization domain *is*
 the window. So the entire layer fuses into the bucketed-ELL pass
 (ops/spmm.py group_mapped), flash-attention style:
@@ -16,7 +16,7 @@ the window. So the entire layer fuses into the bucketed-ELL pass
     per bucket (rows of one degree class, plane [tiles, pitch]):
         E   = leaky_relu(s_src[idx] + s_dst[tiles, None])   in-plane
         Z   = exp(E - max_pitch(E)) masked                  in-plane
-        out = einsum("tph,tphd->thd", Z, hw[idx]) / sum(Z)  MXU/VPU
+        out = einsum("tph,tphd->thd", Z, hw[idx]) / sum(Z)
 
 No per-edge arrays exist at all; the only scatter is one unique-index
 row set per bucket. The schedule abstraction (reference: group_mapped,
@@ -56,9 +56,8 @@ class GroupedAttentionAggregate:
         self.adj = adj
         self.n = adj.shape[0]
         self.negative_slope = float(negative_slope)
-        self.dtype = dtype  # "bfloat16" halves feature-gather traffic
-        #                     (116 -> 91 ms on arxiv H=4 D=64); scores,
-        #                     softmax and accumulation stay f32
+        self.dtype = dtype  # "bfloat16" halves feature-gather traffic;
+        #                     scores, softmax and accumulation stay f32
         plan = make_plan(CsrLayout.from_csr(adj), "group_mapped")
         import jax.numpy as jnp
 
@@ -144,17 +143,14 @@ class GroupedAttentionAggregate:
 
         n, slope = self.n, self.negative_slope
         H, D = hw.shape[1], hw.shape[2]
-        # gather from the flattened [N, H*D] view: a 3-D operand makes
-        # XLA issue per-ELEMENT scalar gathers (measured seconds at
-        # arxiv scale); flat H*D-wide rows take the vector fast path
+        # gather from the flattened [N, H*D] view: one H*D-wide row per
+        # index rather than a 3-D gather
         hw2 = hw.reshape(n, H * D)
         fused_scores = self.dtype is not None
         if fused_scores:
-            # round-5 lever (scripts/tpu_r5_gat_levers.py, 2.8x fwd):
-            # a separate s_src[idx] gather is an H-lane-wide row gather
-            # that XLA lowers per-ELEMENT (~4x per slot); concatenating
-            # the score halves onto the feature rows makes it ride the
-            # one wide fast-path gather below for free. Scores round
+            # a separate s_src[idx] gather is a narrow H-wide row
+            # gather; concatenating the score halves onto the feature
+            # rows makes it ride the one wide gather below. Scores round
             # through bf16 with the features (the backward rounds
             # identically, so fwd/bwd stay consistent).
             cat = jnp.concatenate(
@@ -162,8 +158,8 @@ class GroupedAttentionAggregate:
                 axis=1).astype(self.dtype)
         else:
             hw2c = hw2
-        # out stays flat [N, H*D]: 3-D scatters (like 3-D gathers) hit
-        # XLA's per-element slow path on TPU
+        # out stays flat [N, H*D]: one wide row per scatter index
+        # instead of a 3-D scatter
         out = jnp.zeros((n, H * D), hw.dtype)
         neg = jnp.asarray(-jnp.inf, s_src.dtype)
         if with_res:
@@ -180,9 +176,8 @@ class GroupedAttentionAggregate:
             else:
                 sg = s_src[idx]                           # [t, p, H]
                 f = hw2c[idx].reshape(t, p, H, D)
-            # score elementwise ops in [t, p*H] flattened-lane layout:
-            # [t, p, H] keeps H(=4) on the 128-lane axis (32x waste);
-            # merging (p, H) onto lanes measured another ~1.3x
+            # score elementwise ops in a flattened [t, p*H] layout, so
+            # the tiny H axis is not the minor dimension on its own
             sdt = jnp.broadcast_to(s_dst[tiles][:, None, :], (t, p, H))
             vmask = jnp.broadcast_to(valid[..., None], (t, p, H))
             e2 = (sg + sdt).reshape(t, p * H)
@@ -195,8 +190,7 @@ class GroupedAttentionAggregate:
                 0.0).reshape(t, p, H)
             denom = z.sum(axis=1)                         # [t, H]
             # broadcast-mul + sum(axis=1) mirrors the group_mapped SpMM
-            # plane reduce (ops/spmm.py) — measured ~2x faster than the
-            # dot_general einsum lowering for this shape family
+            # plane reduce (ops/spmm.py) instead of a dot_general
             agg = (z.astype(f.dtype)[..., None] * f).astype(
                 jnp.float32).sum(axis=1)                  # [t, H, D]
             agg = agg / jnp.maximum(denom, 1e-30)[..., None]
@@ -265,12 +259,10 @@ class GroupedAttentionAggregate:
             else:
                 G = g2[idx2].reshape(t2, p2, H, D)
                 Rg = R[idx2]
-            # plane math runs in [t, H, p] layout: with H=4 on the
-            # 128-lane axis every VPU op pays 32x lane waste (measured
-            # 84 ms for the [t,p,H]-output u2 einsum alone); the big
-            # [.., H, D] reduces mirror the group_mapped SpMM's
-            # broadcast-mul + axis-sum (ops/spmm.py) instead of
-            # dot_general
+            # plane math runs in [t, H, p] layout, keeping the tiny H
+            # axis off the minor dimension; the big [.., H, D] reduces
+            # mirror the group_mapped SpMM's broadcast-mul + axis-sum
+            # (ops/spmm.py) instead of dot_general
             RgT = Rg.transpose(0, 2, 1)                   # [t, 4H, p]
             sdst2, m2 = RgT[:, :H], RgT[:, H:2 * H]
             den2, c2 = RgT[:, 2 * H:3 * H], RgT[:, 3 * H:]
@@ -299,9 +291,7 @@ class GroupedAttentionAggregate:
 
         ds_dst = jnp.zeros_like(s_dst)
         for (tiles, _, _), mp in zip(bufs["buckets"], bufs["fwd_maps"]):
-            # width-H row gather rides the TPU row-gather fast path
-            # (issue-bound like width-128; the flat one-hot trick is
-            # only for 1-wide gathers and costs H x the issues here)
+            # one width-H row gather per slot
             vals = dpre_flat[mp]                          # [t, p, H]
             ds_dst = ds_dst.at[tiles].set(vals.sum(axis=1),
                                           unique_indices=True)
@@ -379,8 +369,7 @@ class GroupedAttentionV2:
 
         n, slope = self.n, self.negative_slope
         H, D = u.shape[1], u.shape[2]
-        # flat [N, H*D] views for every gather (3-D operands hit XLA's
-        # per-element slow path, docs/concepts/tpu-performance.md §3)
+        # flat [N, H*D] views for every gather: one wide row per index
         u2 = u.reshape(n, H * D)
         vals2 = vals.reshape(n, H * D)
         if self.dtype is not None:

@@ -1,1 +1,1 @@
-"""Pallas (Mosaic) TPU kernels — the native compute tier."""
+"""Pallas kernels for the GPU (Triton route), interpreted on the CPU."""

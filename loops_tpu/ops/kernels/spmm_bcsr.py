@@ -1,129 +1,100 @@
-"""Grouped block-sparse SpMM (BCSR x dense) — the MXU speed-of-light path.
+"""Block-sparse (BCSR) SpMM as a Pallas kernel for the GPU (Triton route).
 
-TPU-first design (no reference analog; the reference's only SpMM is a
-scalar thread-mapped loop, include/loops/algorithms/spmm/
-thread_mapped.cuh:32-53): the stored R x C blocks of a BCSR matrix are
-streamed through the Pallas pipeline as MXU matmul operands.
+One program handles one (block row, feature tile). It walks the block
+row's stored blocks; for each it loads the ``R x C`` payload and the
+contiguous ``B[bcol*C : (bcol+1)*C, ftile]`` slab and issues one dot
+with f32 accumulation in registers:
 
-The whole trick is the **scalar-prefetched index map** (the TPU analog of
-the reference schedule's tile->processor mapping): the grid iterates over
-(feature tile j, stored block t); the pipeline DMAs
+    acc[RP, FT] += A_blk[RP, C] @ B[bcol*C : bcol*C + C, ftile]
 
-    A block  t        : vals[t]            (R, C)    from HBM
-    B tile  (cols[t],j): B[cols[t]*C :, j] (C, FT)   from HBM
+so the gathered ``[num_blocks, C, F]`` array that the plain einsum path
+materialises is never written (reference analog: the per-row atom loop
+of algorithms/spmm/thread_mapped.cuh:32-53, with a block as the atom).
+Tensor-core dots need 16 rows; a block of ``R < 16`` rows is loaded
+into a 16-row tile whose extra rows are masked to zero.
 
-automatically double-buffered, and the output block index (brow[t], j)
-*repeats* for consecutive blocks of the same block-row — Pallas keeps the
-output tile resident in VMEM across those steps, so per-row accumulation
-is just ``out += dot`` with a "first block of row" reset. Empty block
-rows are padded with explicit zero blocks so every output tile is
-visited (and therefore initialized).
-
-This is deterministic, atomics-free, and issues only large (>=64 KB for
-C=128, FT=128 f32) DMAs — the exact opposite of per-nonzero gathers.
+Precision: ``dtype=None`` asks for an IEEE f32 dot
+(``Precision.HIGHEST``), since the op promises f32 results and TF32 is
+the card's default. ``dtype="bfloat16"`` streams A and B in bf16 with
+f32 accumulation.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 
-from loops_tpu.formats.base import INDEX_DTYPE
 
-LANES = 128
-
-
-def _round_up(x: int, m: int) -> int:
-    return -(-x // m) * m
+def _next_pow2(x: int) -> int:
+    return 1 << max(int(x) - 1, 0).bit_length()
 
 
-def _pad_empty_rows(bcsr):
-    """Insert a zero block (col 0) into each empty block-row; returns
-    (vals [NB', R, C], block_cols [NB'], brow [NB'], first [NB'])."""
-    R, C = bcsr.block_shape
-    counts = np.diff(bcsr.block_offsets)
-    empty = np.nonzero(counts == 0)[0]
-    brow = bcsr.block_row_ids()
-    vals, cols = bcsr.vals, bcsr.block_cols
-    if len(empty):
-        ins_vals = np.zeros((len(empty), R, C), dtype=vals.dtype)
-        brow = np.concatenate([brow, empty.astype(INDEX_DTYPE)])
-        cols = np.concatenate([cols, np.zeros(len(empty), INDEX_DTYPE)])
-        vals = np.concatenate([vals, ins_vals])
-        order = np.argsort(brow, kind="stable")
-        brow, cols, vals = brow[order], cols[order], vals[order]
-    first = np.empty(len(brow), dtype=INDEX_DTYPE)
-    if len(brow):
-        first[0] = 1
-        first[1:] = (brow[1:] != brow[:-1]).astype(INDEX_DTYPE)
-    return vals, cols, brow.astype(INDEX_DTYPE), first
-
-
-def bcsr_spmm_pallas(bcsr, block_f: int = 512, interpret: bool | None = None,
-                     dtype=None):
-    """Build ``B -> C`` for a BCSR matrix. Requires R % 8 == 0 and
-    C % 128 == 0 (MXU tile alignment)."""
+def bcsr_spmm_pallas(bcsr, block_f: int = 128, dtype=None):
+    """Build ``(bufs, fn(bufs, B))`` for a BCSR matrix (C a power of two
+    of at least 16)."""
     import jax
     import jax.numpy as jnp
     from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
+    from jax.experimental.pallas import triton as plgpu
 
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
+    from loops_tpu.utils.platform import pallas_interpret
 
+    interpret = pallas_interpret()
     R, C = bcsr.block_shape
-    if R % 8 or C % LANES:
+    if C < 16 or C != _next_pow2(C):
         raise ValueError(
-            f"Pallas BCSR SpMM needs R%8==0 and C%128==0, got {R}x{C}")
+            f"BCSR SpMM kernel needs a power-of-two C >= 16, got {R}x{C}")
+    RP = max(_next_pow2(R), 16)
     rows, cols_n = bcsr.shape
     nbr = bcsr.num_block_rows
     ncols_pad = bcsr.num_block_cols * C
+    stream = jnp.dtype(dtype) if dtype is not None else jnp.float32
+    precision = (jax.lax.Precision.HIGHEST if dtype is None
+                 else jax.lax.Precision.DEFAULT)
 
-    vals_np, bcols_np, brow_np, first_np = _pad_empty_rows(bcsr)
-    NB = len(bcols_np)
-    bufs = dict(
-        vals=jnp.asarray(vals_np if dtype is None
-                         else vals_np.astype(dtype)),
-        bcols=jnp.asarray(bcols_np),
-        brow=jnp.asarray(brow_np),
-        first=jnp.asarray(first_np),
-    )
+    # payload rows stacked [nb*R (+RP pad), C]: a block's 16-row tile
+    # may read past its R rows, so every tile stays in bounds
+    nb = bcsr.num_blocks
+    a2d = np.zeros((nb * R + RP, C), np.float32)
+    a2d[: nb * R] = np.asarray(bcsr.vals, np.float32).reshape(nb * R, C)
+    bufs = dict(a=jnp.asarray(a2d, stream),
+                ptr=jnp.asarray(bcsr.block_offsets.astype(np.int32)),
+                bcol=jnp.asarray(bcsr.block_cols.astype(np.int32)))
 
-    def kernel(bcols_ref, brow_ref, first_ref, a_ref, b_ref, out_ref):
-        t = pl.program_id(1)
-        prod = jnp.dot(a_ref[0], b_ref[:],
-                       preferred_element_type=jnp.float32)
+    def kernel(FT, ptr_ref, bcol_ref, a_ref, b_ref, out_ref):
+        br = pl.program_id(0)
+        f0 = pl.program_id(1) * FT
+        live = (jax.lax.broadcasted_iota(jnp.int32, (RP, C), 0) < R)
 
-        @pl.when(first_ref[t] == 1)
-        def _():
-            out_ref[:] = prod
+        def body(k, acc):
+            bc = bcol_ref[k]
+            a = plgpu.load(a_ref.at[pl.ds(k * R, RP), pl.ds(0, C)],
+                           mask=live, other=0.0)
+            bt = b_ref[pl.ds(bc * C, C), pl.ds(f0, FT)]
+            return acc + jnp.dot(a, bt, precision=precision,
+                                 preferred_element_type=jnp.float32)
 
-        @pl.when(first_ref[t] != 1)
-        def _():
-            out_ref[:] += prod
+        acc = jax.lax.fori_loop(ptr_ref[br], ptr_ref[br + 1], body,
+                                jnp.zeros((RP, FT), jnp.float32))
+        keep = jax.lax.broadcasted_iota(jnp.int32, (RP, FT), 0) < R
+        plgpu.store(out_ref.at[pl.ds(br * R, RP), pl.ds(f0, FT)], acc,
+                    mask=keep)
 
     def fn(b, B):
         F = B.shape[1]
-        FT = min(block_f, _round_up(F, LANES))
-        Fp = _round_up(F, FT)
-        Bp = jnp.zeros((ncols_pad, Fp), B.dtype)
-        Bp = Bp.at[: cols_n, :F].set(B.astype(Bp.dtype))
-
-        grid_spec = pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=3,
-            grid=(Fp // FT, NB),
-            in_specs=[
-                pl.BlockSpec((1, R, C),
-                             lambda j, t, bc, br, fi: (t, 0, 0)),
-                pl.BlockSpec((C, FT),
-                             lambda j, t, bc, br, fi: (bc[t], j)),
-            ],
-            out_specs=pl.BlockSpec((R, FT),
-                                   lambda j, t, bc, br, fi: (br[t], j)),
-        )
+        FT = min(_next_pow2(block_f), max(_next_pow2(F), 16))
+        Fp = -(-F // FT) * FT
+        Bp = jnp.zeros((ncols_pad, Fp), stream).at[:cols_n, :F].set(
+            B.astype(stream))
         out = pl.pallas_call(
-            kernel,
-            grid_spec=grid_spec,
-            out_shape=jax.ShapeDtypeStruct((nbr * R, Fp), jnp.float32),
+            functools.partial(kernel, FT),
+            grid=(nbr, Fp // FT),
+            out_shape=jax.ShapeDtypeStruct((nbr * R + RP, Fp), jnp.float32),
+            backend="triton",
+            compiler_params=plgpu.CompilerParams(num_warps=4,
+                                                 num_stages=3),
             interpret=interpret,
-        )(b["bcols"], b["brow"], b["first"], b["vals"], Bp)
+            name="bcsr_spmm",
+        )(b["ptr"], b["bcol"], b["a"], Bp)
         return out[:rows, :F]
     return bufs, fn

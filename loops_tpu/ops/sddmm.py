@@ -6,16 +6,14 @@ analog (the reference stops at SpMV/SpMM); required by the north star
 (BASELINE.json config 3).
 
 * CSR/COO — XLA gather-einsum over nonzeros (returns values in storage
-  order, composable with the containers).
-* BCSR — Pallas kernel: per stored block, ``A_rows @ B_cols^T`` on the
-  MXU with feature-tile accumulation (ops/kernels/sddmm_bcsr.py).
+  order, composable with the containers); XLA fuses gather -> multiply
+  -> reduce into one loop on the GPU.
+* BCSR — per stored block, ``A_rows @ B_cols^T`` as one batched einsum.
 
 Operator protocol: builders return ``(buffers, fn)`` with buffers passed
 as jit arguments — never closure constants (see ops/spmv.py docstring).
 """
 from __future__ import annotations
-
-import numpy as np
 
 from loops_tpu.formats import BCSR, COO, CSR
 
@@ -23,39 +21,12 @@ __all__ = ["sddmm", "SDDMMOperator"]
 
 
 class SDDMMOperator:
-    def __init__(self, mat, impl: str = "xla", block_f: int = 512,
-                 dtype=None):
+    def __init__(self, mat, dtype=None):
         import jax
 
         self.mat = mat
         self.dtype = dtype
-        if isinstance(mat, BCSR) and impl == "pallas":
-            from loops_tpu.ops.kernels.sddmm_bcsr import bcsr_sddmm_pallas
-            self._bufs, fn = bcsr_sddmm_pallas(mat, block_f=block_f)
-        elif isinstance(mat, CSR) and impl == "pallas":
-            # flat kernel: monotone A-side expansion kills one of the
-            # two gather-issue floors (ops/kernels/sddmm_flat.py);
-            # bf16-operand mode only — f64/f32-exact stays on XLA
-            import warnings
-
-            from loops_tpu.ops.kernels.sddmm_flat import flat_sddmm_pallas
-            if dtype != "bfloat16":
-                warnings.warn(
-                    "impl='pallas' SDDMM is the bf16-operand kernel; "
-                    "falling back to the XLA path for exact dtypes",
-                    stacklevel=2)
-                self._bufs, fn = self._build_nz(mat.row_ids(), mat.indices,
-                                                mat.vals, dtype)
-            else:
-                try:
-                    self._bufs, fn = flat_sddmm_pallas(mat)
-                except ValueError as e:
-                    warnings.warn(
-                        f"impl='pallas' outside envelope ({e}); falling "
-                        "back to the XLA path", stacklevel=2)
-                    self._bufs, fn = self._build_nz(
-                        mat.row_ids(), mat.indices, mat.vals, dtype)
-        elif isinstance(mat, CSR):
+        if isinstance(mat, CSR):
             self._bufs, fn = self._build_nz(mat.row_ids(), mat.indices,
                                             mat.vals, dtype)
         elif isinstance(mat, COO):
@@ -77,14 +48,16 @@ class SDDMMOperator:
 
         def fn(b, A, B):
             if dtype is not None:
-                # dtype="bfloat16" halves the gathered-row traffic and
-                # lets XLA fuse to the two-gather issue floor: measured
-                # 30.8 -> 12.3 ms on ogbn-arxiv F=128 (2.5x); scores
-                # accumulate in f32
+                # dtype="bfloat16" halves the gathered-row traffic;
+                # scores accumulate in f32
                 A = A.astype(dtype)
                 B = B.astype(dtype)
-            dots = jnp.einsum("nf,nf->n", A[b["rid"]], B[b["cid"]],
-                              preferred_element_type=jnp.float32)
+            if dtype is None:
+                dots = jnp.einsum("nf,nf->n", A[b["rid"]], B[b["cid"]],
+                                  precision="highest")
+            else:
+                dots = jnp.einsum("nf,nf->n", A[b["rid"]], B[b["cid"]],
+                                  preferred_element_type=jnp.float32)
             return b["vals"] * dots
         return bufs, fn
 
@@ -106,7 +79,7 @@ class SDDMMOperator:
             Bp = jnp.zeros((nbc_C, F), B.dtype).at[:cols].set(B)
             Ab = Ap.reshape(-1, R, F)[b["brow"]]      # [nb, R, F]
             Bb = Bp.reshape(-1, C, F)[b["bcol"]]      # [nb, C, F]
-            dots = jnp.einsum("brf,bcf->brc", Ab, Bb)
+            dots = jnp.einsum("brf,bcf->brc", Ab, Bb, precision="highest")
             return b["vals"] * dots
         return bufs, fn
 
@@ -123,15 +96,15 @@ def _op_cache(mat) -> dict:
     return cache
 
 
-def sddmm(mat, A, B, impl: str = "xla", block_f: int = 512, dtype=None):
+def sddmm(mat, A, B, dtype=None):
     """Sampled products at the sparsity pattern of ``mat``.
 
     Returns per-nonzero values in the container's storage order (CSR/COO)
     or per-block dense payloads (BCSR). ``dtype="bfloat16"`` rounds the
-    dense operands before the edge dots (f32 accumulation) — 2.5x on TPU.
+    dense operands before the edge dots (f32 accumulation).
     """
-    key = (impl, block_f, str(dtype))
+    key = str(dtype)
     cache = _op_cache(mat)
     if key not in cache:
-        cache[key] = SDDMMOperator(mat, impl, block_f, dtype)
+        cache[key] = SDDMMOperator(mat, dtype)
     return cache[key](A, B)

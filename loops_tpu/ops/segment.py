@@ -38,16 +38,9 @@ def segment_softmax(scores, segment_ids, num_segments, sorted_ids=False):
     """
     import jax.numpy as jnp
 
-    from loops_tpu.ops.gather import gather1d
-
-    def take(table, ids):
-        # scalar gathers hit XLA-TPU's per-index slow path; route 1-D
-        # tables through the row-gather trick (ops/gather.py)
-        return gather1d(table, ids) if table.ndim == 1 else table[ids]
-
     mx = segment_max(scores, segment_ids, num_segments, sorted_ids)
     # segment_max yields -inf for empty segments; those ids never appear
     # in segment_ids so the gather below never reads them.
-    e = jnp.exp(scores - take(mx, segment_ids))
+    e = jnp.exp(scores - mx[segment_ids])
     denom = segment_sum(e, segment_ids, num_segments, sorted_ids)
-    return e / jnp.maximum(take(denom, segment_ids), 1e-30)
+    return e / jnp.maximum(denom[segment_ids], 1e-30)

@@ -2,22 +2,17 @@
 
 The reference ships a single thread-mapped SpMM (reference:
 include/loops/algorithms/spmm/thread_mapped.cuh:32-90 — per row, loop over
-B columns, inner atoms loop). On TPU the feature dimension is where the
-MXU earns its keep, so SpMM gets the deepest treatment:
+B columns, inner atoms loop). Here:
 
 * CSR ``row_mapped``  — gather-multiply-segment: C = segsum(vals * B[cols])
   (XLA fuses the gather into the reduction; the irregular baseline).
 * CSR ``group_mapped`` — bucketed-ELL planes: dense masked
-  [rows_b, pitch_b, F] reductions per degree class, zero scatter.
-* CSR ``merge_path`` + ``impl="pallas"`` — the flat balanced kernel:
-  per-block one-hot MXU reduction over staged products with
-  stripe-resident output (ops/kernels/spmm_flat.py).
+  [rows_b, pitch_b, F] reductions per degree class.
 * ELL — one uniform dense plane reduction.
-* BCSR — **the speed-of-light path**: grouped block-sparse matmul.
-  ``impl="xla"`` is a batched einsum + segment-sum over block rows;
-  ``impl="pallas"`` streams B tiles via scalar-prefetched index maps
-  (one block per grid step); ``impl="pallas2"`` is the optimized
-  super-row kernel with manual double-buffered DMA.
+* BCSR — grouped block-sparse matmul. ``impl="xla"`` is a batched
+  einsum + segment-sum over block rows; ``impl="pallas"`` is the Triton
+  kernel that loops over a block row's blocks and accumulates their
+  dots in registers (ops/kernels/spmm_bcsr.py).
 
 Operator protocol: builders return ``(buffers, fn)`` with buffers passed
 as jit arguments — never closure constants (see ops/spmv.py docstring).
@@ -40,12 +35,12 @@ def _segment_sum(data, ids, num_segments, sorted_ids=False):
 
 
 def _pallas_f64_fallback(impl: str, vals_dtype) -> str:
-    """Pallas SpMM kernels stage f32 (or caller-requested bf16)
-    registers; f64 values fall back to the XLA path with a warning
-    instead of being silently downcast."""
+    """The BCSR kernel computes in f32 (or caller-requested bf16); f64
+    values fall back to the XLA path with a warning instead of being
+    silently downcast."""
     import warnings
 
-    if impl.startswith("pallas") and np.dtype(vals_dtype) == np.float64:
+    if impl == "pallas" and np.dtype(vals_dtype) == np.float64:
         warnings.warn(
             f"impl={impl!r} stages float32 registers; falling back to "
             "the XLA path for float64 values (pass float32 data to use "
@@ -55,23 +50,34 @@ def _pallas_f64_fallback(impl: str, vals_dtype) -> str:
 
 
 class SpMMOperator:
-    """Compiled SpMM bound to one sparse matrix: ``op(B) -> C``."""
+    """Compiled SpMM bound to one sparse matrix: ``op(B) -> C``.
+
+    ``impl`` picks the BCSR path (``"xla"`` einsum or ``"pallas"``
+    kernel); every other format runs through XLA only.
+    """
 
     def __init__(self, mat, schedule: str = "row_mapped",
-                 impl: str = "xla", block_f: int = 512, dtype=None,
-                 hub_dense_min: int | None = None, block: int = 512):
+                 impl: str = "xla", block_f: int | None = None, dtype=None,
+                 hub_dense_min: int | None = None):
         import jax
+
+        if block_f is None:
+            from loops_tpu.tuning.launch_box import launch_params
+            block_f = launch_params().spmm_block_f
 
         self.mat = mat
         self.rows, self.cols = mat.shape
         self.schedule = schedule
         self.impl = impl
-        self.block = block
         self.block_f = block_f
         self.dtype = dtype
         self.hub_dense_min = hub_dense_min
+        if impl != "xla" and not isinstance(mat, BCSR):
+            raise ValueError(
+                f"impl={impl!r} selects a BCSR kernel; "
+                f"{type(mat).__name__} SpMM runs through XLA only")
         builder = getattr(self, f"_build_{type(mat).__name__.lower()}")
-        self._bufs, fn = builder(mat, schedule, impl)
+        self._bufs, fn = builder(mat, schedule)
         self._jit = jax.jit(fn)
         self._fn = lambda B: self._jit(self._bufs, B)
 
@@ -80,32 +86,24 @@ class SpMMOperator:
         return self._jit(self._bufs, jnp.asarray(B))
 
     # ------------------------------------------------------------- CSR
-    def _build_csr(self, csr: CSR, schedule, impl):
+    def _build_csr(self, csr: CSR, schedule):
         import jax.numpy as jnp
 
         rows = self.rows
         if schedule == "auto":
             from loops_tpu.schedule.plans import choose_schedule
             pick = choose_schedule(CsrLayout.from_csr(csr))
-            # SpMM has no sorted_flat analog (its x is a matrix, not a
-            # VMEM-resident vector); the skew/sorted picks map to the
-            # degree-class planes, merge_path lowers to the same
-            # gather-segment XLA path as row_mapped
+            # the skew pick maps to the degree-class planes; the flat
+            # picks lower to the same gather-segment XLA path as
+            # row_mapped
             schedule = self.schedule = (
-                "group_mapped" if pick in ("group_mapped", "sorted_flat")
-                else "row_mapped")
-        if impl != "xla" and not (schedule == "merge_path"
-                                  and impl == "pallas"):
-            raise ValueError(
-                "csr SpMM implements impl='pallas' only with "
-                f"schedule='merge_path'; got schedule={schedule!r}, "
-                f"impl={impl!r}")
+                "group_mapped" if pick == "group_mapped" else "row_mapped")
         if schedule == "group_mapped":
             plan = make_plan(CsrLayout.from_csr(csr), "group_mapped")
             # Hub-dense hybrid: rows denser than ~1/16 of the columns
             # gather a large fraction of B *randomly*; materializing them
-            # as dense rows turns that into one streamed MXU matmul
-            # (B is read contiguously and reused across all hubs).
+            # as dense rows turns that into one streamed matmul (B is
+            # read contiguously and reused across all hubs).
             hub_min = (self.hub_dense_min if self.hub_dense_min is not None
                        else max(self.cols // 16, 1024))
             hub_tiles, plane_buckets = [], []
@@ -138,9 +136,7 @@ class SpMMOperator:
 
             def fn(b, B):
                 # dtype="bfloat16" halves the random B-row gather
-                # traffic — the binding resource once F > ~128 (the
-                # issue-bound regime below that is dtype-insensitive);
-                # accumulation stays f32
+                # traffic; accumulation stays f32
                 Bg = B if dtype is None else B.astype(dtype)
                 C = jnp.zeros((rows, B.shape[1]), jnp.float32)
                 for tiles, idx, v in b["buckets"]:
@@ -148,23 +144,11 @@ class SpMMOperator:
                     s = (vv[..., None] * Bg[idx]).astype(jnp.float32)
                     C = C.at[tiles].add(s.sum(axis=1))
                 if "hub_rows" in b:
-                    hub_out = jnp.dot(b["hub_rows"], B,
+                    hub_out = jnp.dot(b["hub_rows"], B, precision="highest",
                                       preferred_element_type=jnp.float32)
                     C = C.at[b["hub_tiles"]].add(hub_out.astype(C.dtype))
                 return C.astype(B.dtype)
             return bufs, fn
-
-        if schedule == "merge_path" and impl == "pallas":
-            impl = _pallas_f64_fallback(impl, csr.vals.dtype)
-        if schedule == "merge_path" and impl == "pallas":
-            # the flat merge-path Pallas kernel needs the bounded-span
-            # guarantee (<= K rows per block); work_oriented has
-            # data-dependent spans and stays on the XLA path
-            from loops_tpu.ops.kernels.spmm_flat import flat_spmm_pallas
-            plan = make_plan(CsrLayout.from_csr(csr), "merge_path",
-                             block_work=self.block)
-            return flat_spmm_pallas(csr, plan, block_f=self.block_f,
-                                    dtype=self.dtype)
 
         bufs = dict(vals=jnp.asarray(csr.vals),
                     cols=jnp.asarray(csr.indices),
@@ -184,14 +168,13 @@ class SpMMOperator:
         return bufs, fn
 
     # ------------------------------------------------------------- COO
-    def _build_coo(self, coo: COO, schedule, impl):
+    def _build_coo(self, coo: COO, schedule):
         import jax.numpy as jnp
 
-        if schedule not in ("row_mapped", "auto") or impl != "xla":
+        if schedule not in ("row_mapped", "auto"):
             raise ValueError(
-                "coo SpMM implements schedule='row_mapped' with "
-                f"impl='xla' only, got schedule={schedule!r}, "
-                f"impl={impl!r}")
+                "coo SpMM implements schedule='row_mapped' only, got "
+                f"{schedule!r}")
         rows = self.rows
         sorted_rows = bool(np.all(np.diff(coo.rows) >= 0))
         bufs = dict(vals=jnp.asarray(coo.vals),
@@ -204,12 +187,11 @@ class SpMMOperator:
         return bufs, fn
 
     # ------------------------------------------------------------- ELL
-    def _build_ell(self, ell: ELL, schedule, impl):
-        if schedule not in ("row_mapped", "auto") or impl != "xla":
+    def _build_ell(self, ell: ELL, schedule):
+        if schedule not in ("row_mapped", "auto"):
             raise ValueError(
-                "ell SpMM implements schedule='row_mapped' with "
-                f"impl='xla' only, got schedule={schedule!r}, "
-                f"impl={impl!r}")
+                "ell SpMM implements schedule='row_mapped' only, got "
+                f"{schedule!r}")
         rows = self.rows
         idx_plane, val_plane = ell.as_jax(pad_rows_to=1, pad_pitch_to=1)
         bufs = dict(idx=idx_plane, val=val_plane)
@@ -219,25 +201,18 @@ class SpMMOperator:
         return bufs, fn
 
     # ------------------------------------------------------------- BCSR
-    def _build_bcsr(self, bcsr: BCSR, schedule, impl):
+    def _build_bcsr(self, bcsr: BCSR, schedule):
         import jax.numpy as jnp
 
-        impl = _pallas_f64_fallback(impl, bcsr.vals.dtype)
+        impl = _pallas_f64_fallback(self.impl, bcsr.vals.dtype)
         if impl == "pallas":
             from loops_tpu.ops.kernels.spmm_bcsr import bcsr_spmm_pallas
-            return bcsr_spmm_pallas(bcsr, block_f=self.block_f)
-        if impl == "pallas2":
-            from loops_tpu.ops.kernels.spmm_bcsr_v2 import bcsr_spmm_pallas_v2
-            return bcsr_spmm_pallas_v2(bcsr, block_f=self.block_f,
-                                       dtype=self.dtype)
-        if impl == "pallas3":
-            from loops_tpu.ops.kernels.spmm_bcsr_v3 import bcsr_spmm_pallas_v3
-            return bcsr_spmm_pallas_v3(bcsr, block_f=self.block_f,
-                                       dtype=self.dtype)
+            return bcsr_spmm_pallas(bcsr, block_f=self.block_f,
+                                    dtype=self.dtype)
         if impl != "xla":
             raise ValueError(
-                f"bcsr SpMM implements impl in ('xla', 'pallas', "
-                f"'pallas2', 'pallas3'), got {impl!r}")
+                f"bcsr SpMM implements impl in ('xla', 'pallas'), got "
+                f"{impl!r}")
 
         rows = self.rows
         cols = self.cols
@@ -248,11 +223,23 @@ class SpMMOperator:
                     bcols=jnp.asarray(bcsr.block_cols),
                     brid=jnp.asarray(bcsr.block_row_ids()))
 
+        dtype = self.dtype
+
         def fn(b, B):
             F = B.shape[1]
+            vals = b["vals"]
+            if dtype is not None:
+                vals, B = vals.astype(dtype), B.astype(dtype)
             Bp = jnp.zeros((ncols_pad, F), B.dtype).at[:cols].set(B)
             Bb = Bp.reshape(-1, C, F)[b["bcols"]]            # [nb, C, F]
-            prod = jnp.einsum("brc,bcf->brf", b["vals"], Bb)  # MXU batched
+            # f32 promised: HIGHEST keeps the GPU off TF32; bf16 mode
+            # accumulates in f32
+            if dtype is None:
+                prod = jnp.einsum("brc,bcf->brf", vals, Bb,
+                                  precision="highest")
+            else:
+                prod = jnp.einsum("brc,bcf->brf", vals, Bb,
+                                  preferred_element_type=jnp.float32)
             Cb = _segment_sum(prod, b["brid"], nbr, sorted_ids=True)
             return Cb.reshape(-1, F)[:rows]
         return bufs, fn
@@ -267,10 +254,9 @@ def _op_cache(mat) -> dict:
 
 
 def spmm(mat, B, schedule: str = "row_mapped", impl: str = "xla",
-         block_f: int = 512, dtype=None, block: int = 512):
-    key = (schedule, impl, block_f, str(dtype), block)
+         block_f: int | None = None, dtype=None):
+    key = (schedule, impl, block_f, str(dtype))
     cache = _op_cache(mat)
     if key not in cache:
-        cache[key] = SpMMOperator(mat, schedule, impl, block_f, dtype,
-                                  block=block)
+        cache[key] = SpMMOperator(mat, schedule, impl, block_f, dtype)
     return cache[key](B)

@@ -11,7 +11,7 @@ overlapped with the interior reduction — the protocol that scales to
 papers100M-size graphs. ``exchange="all_gather"`` keeps the simple
 O(N*F)-per-chip mode as the oracle/debug path. All collectives ride
 named mesh axes, so the same code runs on an 8-device CPU test mesh and
-a v5p pod slice.
+on the cards of one NVLink host.
 
 Differentiable end-to-end: ``all_gather``'s transpose is
 ``psum_scatter`` and ``all_to_all`` transposes to the reverse
@@ -111,31 +111,19 @@ def _build_propagate(plan, mesh, exchange: str, overlap: bool):
     if exchange == "halo":
         from loops_tpu.parallel.halo import DistSpMMHalo, HaloPlan
         return DistSpMMHalo(HaloPlan.build(plan), mesh, overlap=overlap)
-    if exchange == "hier":
-        from loops_tpu.parallel.hier import DistSpMMHier, HierHaloPlan
-        if tuple(mesh.axis_names) != ("host", "chip"):
-            raise ValueError(
-                'exchange="hier" needs a ("host", "chip") mesh '
-                "(parallel.mesh.make_mesh_hier)")
-        hosts, chips = (int(mesh.shape["host"]),
-                        int(mesh.shape["chip"]))
-        return DistSpMMHier(HierHaloPlan.build(plan, hosts, chips), mesh)
     if exchange == "all_gather":
         return DistSpMM(plan, mesh)
     raise ValueError(f"unknown exchange {exchange!r}")
 
 
-def _make_dist_train_step(model, optimizer, features, labels, train_mask):
-    """Shared distributed train-step factory (masked softmax
-    cross-entropy over stacked shards) for DistGCN / DistGraphSAGE —
-    the models differ only in ``apply``.
-
-    Returns ``step(params, opt_state) -> (params, opt_state, loss)``;
-    all graph/feature buffers are threaded through the jit as arguments
-    (never HLO constants)."""
+def make_dist_loss(model, features, labels, train_mask):
+    """The distributed training loss (masked softmax cross-entropy over
+    stacked shards) for DistGCN / DistGraphSAGE: ``(loss_fn, bufs)``
+    with ``loss_fn(params, bufs)``. ``bufs`` holds the stacked features,
+    labels, mask and the exchange's graph buffers, so they ride through
+    a jit as arguments (never HLO constants)."""
     import jax
     import jax.numpy as jnp
-    import optax
 
     plan = model.plan
     h0 = jnp.asarray(plan.pad_features(np.asarray(features)))
@@ -148,6 +136,19 @@ def _make_dist_train_step(model, optimizer, features, labels, train_mask):
         nll = -jnp.take_along_axis(
             logp, b["lab"][..., None], axis=-1)[..., 0]
         return (nll * b["msk"]).sum() / jnp.maximum(b["msk"].sum(), 1.0)
+
+    return loss_fn, bufs
+
+
+def _make_dist_train_step(model, optimizer, features, labels, train_mask):
+    """Shared distributed train-step factory for DistGCN /
+    DistGraphSAGE — the models differ only in ``apply``.
+
+    Returns ``step(params, opt_state) -> (params, opt_state, loss)``."""
+    import jax
+    import optax
+
+    loss_fn, bufs = make_dist_loss(model, features, labels, train_mask)
 
     @jax.jit
     def _step(params, opt_state, b):
@@ -164,7 +165,7 @@ def _make_dist_train_step(model, optimizer, features, labels, train_mask):
 
 def _stack_labels(plan, labels, train_mask):
     """[N] labels/mask -> padded stacked [P, rows_per_dev] (vectorized —
-    no per-device Python loop, pod-scale P is fine)."""
+    no per-device Python loop)."""
     import jax.numpy as jnp
 
     labels = np.asarray(labels)

@@ -78,12 +78,9 @@ class EdgePartition:
                     pad_rows_to: int = 8) -> "EdgePartition":
         """Assemble the mesh partition from an out-of-core
         ``io.shards.ShardedCSR`` WITHOUT a global CSR in memory — the
-        papers100M glue: shard p (one host's slice) is loaded lazily
-        from its memmapped files, merge-path-subdivided across the
-        host's chips, and released before the next shard loads. Use
-        with ``make_mesh_hier(sharded.num_shards, chips_per_shard)`` +
-        ``HierHaloPlan`` so the shard boundaries land exactly on the
-        DCN (host) axis."""
+        papers100M glue: shard p is loaded lazily from its memmapped
+        files, merge-path-subdivided across ``chips_per_shard`` devices,
+        and released before the next shard loads."""
         hosts = int(sharded.num_shards)
         C = int(chips_per_shard)
         P = hosts * C

@@ -29,16 +29,3 @@ def make_mesh_2d(graph: int, model: int):
 
     devs = np.array(jax.devices()[: graph * model]).reshape(graph, model)
     return Mesh(devs, ("graph", "model"))
-
-
-def make_mesh_hier(hosts: int, chips: int):
-    """Hierarchical (host x chip) mesh for the two-stage DCN/ICI halo
-    exchange (parallel/hier.py). On a real pod, jax.devices() orders
-    devices host-major, so reshaping (hosts, chips) puts each row of
-    the mesh on one physical host: the "chip" axis rides ICI, the
-    "host" axis rides DCN."""
-    import jax
-    from jax.sharding import Mesh
-
-    devs = np.array(jax.devices()[: hosts * chips]).reshape(hosts, chips)
-    return Mesh(devs, ("host", "chip"))

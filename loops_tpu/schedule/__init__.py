@@ -1,4 +1,4 @@
-"""Schedules: host planners mapping layouts onto the TPU grid
+"""Schedules: host planners mapping layouts onto device work
 (reference: include/loops/schedule.hxx + schedule/*.hxx)."""
 from loops_tpu.schedule.plans import (  # noqa: F401
     SCHEDULES,

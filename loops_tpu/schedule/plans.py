@@ -1,14 +1,14 @@
-"""Schedule planners — host-side work partitioning for the TPU kernels.
+"""Schedule planners — host-side work partitioning for the device ops.
 
 The reference's ``schedule::setup`` templates run *on the device*, mapping
 processor ids to (tile, atom) work at kernel time (reference:
-include/loops/schedule.hxx:55-63 and schedule/*.hxx). On TPU the idiomatic
-split is different: **planning is a host/trace-time precompute producing
+include/loops/schedule.hxx:55-63 and schedule/*.hxx). Here the split is
+different: **planning is a host/trace-time precompute producing
 static-shape arrays**, and the device sees only dense, regular work. Each
 planner here is the analog of one reference schedule:
 
 ==============  ====================================================
-schedule        TPU realization
+schedule        realization
 ==============  ====================================================
 row_mapped      per-atom segment ids -> XLA segmented reduction
                 (reference thread_mapped, schedule/thread_mapped.hxx)
@@ -17,13 +17,13 @@ group_mapped    bucketed-ELL / SELL-style row grouping: rows binned by
                 plane -> pure dense row reductions, zero scatter
                 (reference group_mapped pools a group's atoms,
                 schedule/group_mapped.hxx:104-143 — here the pool is a
-                padded plane and the VPU lanes are the group)
+                padded plane)
 work_oriented   even split of atoms into K-sized blocks + per-block
                 first-row carry info (reference work_oriented's
                 even-share of tiles+atoms, schedule/work_oriented.hxx)
 merge_path      merge-path diagonal split of (tiles + atoms) into
-                blocks of K work items — the load-bearing guarantee on
-                TPU: **each block has <= K atoms AND spans <= K rows**,
+                blocks of K work items — the load-bearing guarantee:
+                **each block has <= K atoms AND spans <= K rows**,
                 so per-block one-hot reductions have static shapes
                 (reference merge_path_flat's preprocess_t,
                 schedule/merge_path_flat.hxx:99-172)
@@ -69,12 +69,10 @@ class GroupMappedPlan:
 
     The device then runs one dense masked row-reduction per bucket —
     regular compute, bounded padding (< 2**class_step by construction),
-    no scatter. Padded slots gather index 0, and gather *issues* are the
-    TPU cost floor (~2.5 ns each, ops/gather.py), so tighter classes cut
-    padding — but each bucket is a separate op chain with ~0.15 ms fixed
-    cost, which dominates: on ogbn-arxiv sqrt(2) classes (31 buckets,
-    1.19x padding) measured *slower* than pow-2 (18 buckets, 1.41x), so
-    pow-2 stays the default; tune per matrix via ``class_step``.
+    no scatter. Padded slots gather index 0, so tighter classes cut
+    padding, but each bucket is a separate op chain with its own fixed
+    cost; pow-2 classes are the default, tuned per matrix via
+    ``class_step``.
     """
     num_tiles: int
     num_atoms: int
@@ -124,10 +122,9 @@ class FlatBlockPlan:
     Work is cut into ``num_blocks`` blocks. Block b owns atoms
     [atom_starts[b], atom_starts[b+1]) and rows (tiles)
     [tile_starts[b], tile_starts[b+1]] — note the closed upper end: the
-    row at ``tile_starts[b+1]`` may be split across the block seam, which
-    is exactly what sequential-grid accumulation on TPU absorbs for free.
+    row at ``tile_starts[b+1]`` may be split across the block seam.
 
-    Also carries the dense per-block staging arrays the Pallas kernels
+    Also carries the dense per-block staging arrays the executors
     consume: ``atom_gather`` [num_blocks, block_atoms] (source atom per
     slot, 0-padded), ``rel_tile`` [num_blocks, block_atoms] (tile of each
     slot relative to the block's first tile), ``valid`` mask.
@@ -175,7 +172,7 @@ class FlatBlockPlan:
     def work_oriented(cls, layout: Layout, block_atoms: int = 512
                       ) -> "FlatBlockPlan":
         """Even split of *atoms* across blocks (the reference's
-        work_oriented even-shares tiles+atoms per thread; on TPU the
+        work_oriented even-shares tiles+atoms per thread; here the
         atom-only split is the natural analog since tile crossings are
         free in a vectorized reduction)."""
         K = int(block_atoms)
@@ -195,81 +192,19 @@ class FlatBlockPlan:
                    ) -> "FlatBlockPlan":
         """Merge-path diagonal split of (tiles + atoms) into blocks of
         ``block_work`` items. Guarantees per-block atoms <= K and row span
-        <= K — the static-shape contract the Pallas kernels rely on."""
+        <= K — the static-shape contract the merge-path kernel relies on."""
         K = int(block_work)
         total = layout.num_tiles + layout.num_atoms
         nb = max(-(-total // K), 1)
         t, a = merge_path_partition(layout.tile_offsets(), nb, K)
-        plan = cls._stage("merge_path", layout, t.astype(np.int64),
+        return cls._stage("merge_path", layout, t.astype(np.int64),
                           a.astype(np.int64), K)
-        plan._layout = layout
-        return plan
-
-    def cut_at_rows(self, stripe_rows: int) -> "FlatBlockPlan":
-        """Re-stage with extra block boundaries at row multiples of
-        ``stripe_rows`` so no block's rows cross a stripe edge — the
-        precondition for stripe-resident output accumulation in the flat
-        SpMM kernel (ops/kernels/spmm_flat.py). Splitting only shrinks
-        blocks, so the <= K atoms / <= K rows guarantees survive."""
-        layout = getattr(self, "_layout", None)
-        if layout is None:
-            raise ValueError("cut_at_rows requires a planner-built plan")
-        offsets = layout.tile_offsets().astype(np.int64)
-        bounds = np.arange(stripe_rows, layout.num_tiles, stripe_rows,
-                           dtype=np.int64)
-        cut_atoms = offsets[bounds]
-        atom_starts = np.unique(np.concatenate(
-            [self.atom_starts.astype(np.int64), cut_atoms]))
-        ids = layout.atom_tile_ids()
-        nb = len(atom_starts) - 1
-        tile_starts = np.zeros(nb + 1, dtype=np.int64)
-        if layout.num_atoms:
-            # block's first row = row of its first atom (empty blocks
-            # inherit the next atom's row; they stage as all-invalid)
-            tile_starts[:-1] = ids[np.minimum(atom_starts[:-1],
-                                              layout.num_atoms - 1)]
-            tile_starts[-1] = layout.num_tiles
-        plan = type(self)._stage(self.schedule, layout, tile_starts,
-                                 atom_starts, self.block_atoms)
-        plan._layout = layout
-        return plan
 
 
-# choose_schedule decision thresholds. Fitted by scripts/fit_heuristic.py
-# against the on-chip sweep of the synthetic battery (sweep_logs/ —
-# scripts/sweep_battery.py); re-run the fitter after any kernel change
-# that shifts the schedule crossovers.
-# Fitted from the on-chip FULL 114-matrix schedule sweep (v5e, round
-# 3; scripts/sweep_battery.py + scripts/fit_heuristic.py, artifact
-# plots/data/heuristics.csv): the sorted-gather kernel
-# (schedule='sorted_flat', ops/kernels/spmv_sorted.py) wins the oracle
-# on 111/113 matrices and its geomean is 6.3x faster than even the
-# best-of-the-four-reference-schedules ORACLE — so the fitted choice
-# is sorted_flat everywhere (99.1% oracle capture), with the kernel's
-# own envelope fallback (pad_cap / x-sublanes / f64) providing the
-# escape hatch to the XLA merge-path executor. Among the four
-# reference-analog schedules the selection thesis still holds: oracle
-# mix group_mapped:75 / work_oriented:29 / merge_path:9, 1.07x over
-# the best fixed — preserved in fit_heuristic's four-schedule study.
-HEURISTIC_THRESHOLDS = {
-    # round-5 refit on the 183-matrix stat-matched SuiteSparse
-    # population (scripts/fit_heuristic.py on sweep_logs_sm): the
-    # always-sorted router captured 82.4% of the oracle there; routing
-    # only EXTREME degree skew (cv > 4 — circuit/hub matrices) to the
-    # group_mapped planes lifts capture to 89.8%. The ratio branch is
-    # fitted shut (inf); small-tile branch stays shut (0).
-    "ratio": float("inf"),
-    "cv": 4.0,      # coefficient of variation above which skew branch
-    "small": 0.0,   # max tile size at or below which -> row_mapped
-    "flat": "sorted_flat",    # uniform/mild tiles
-    "group": "group_mapped",  # extreme-skew tiles
-}
-
-# The sorted_flat picks above are fitted ON-CHIP (v5e). Off-TPU the
-# sorted kernel runs in Pallas interpret mode (~70x slower steady-state
-# than row_mapped XLA on CPU, plus multi-second plan/build), so 'auto'
-# resolves through this legacy four-schedule table instead — the same
-# regime logic the round-2 sweep fitted before sorted_flat existed.
+# choose_schedule decision thresholds, in the form
+# scripts/fit_heuristic.py fits from a schedule sweep
+# (scripts/sweep_battery.py). These are the four-schedule regime logic
+# of an earlier sweep; they are not yet fitted on the GPU.
 HEURISTIC_THRESHOLDS_XLA = {
     "ratio": 1.25,
     "cv": 0.125,
@@ -280,24 +215,18 @@ HEURISTIC_THRESHOLDS_XLA = {
 
 
 def choose_schedule(layout: Layout, thresholds: dict | None = None) -> str:
-    """Heuristic schedule selection — the TPU analog of the reference's
-    best-of-3 oracle study (plots/data/heuristics.csv: the right
-    schedule per matrix beats any fixed one by ~2.7x geomean).
+    """Heuristic schedule selection — the analog of the reference's
+    best-of-3 oracle study (the right schedule per matrix beats any
+    fixed one).
 
-    Measured TPU regimes (docs/experimentation.md):
+    Regimes:
       * skewed degree distributions -> group_mapped (degree-class
         planes avoid both scatter and worst-row padding)
       * tiny/uniform tiles -> row_mapped (segmented reduction is
         already balanced; no plan overhead)
-      * otherwise -> the flat schedule (bounded blocks, Pallas-
-        friendly); the sweep picked work_oriented over merge_path
+      * otherwise -> the flat schedule (bounded blocks)
     """
-    if thresholds is not None:
-        t = thresholds
-    else:
-        import jax
-        t = (HEURISTIC_THRESHOLDS if jax.default_backend() == "tpu"
-             else HEURISTIC_THRESHOLDS_XLA)
+    t = thresholds if thresholds is not None else HEURISTIC_THRESHOLDS_XLA
     sizes = layout.tile_sizes()
     if layout.num_tiles == 0 or layout.num_atoms == 0:
         return "row_mapped"
@@ -305,8 +234,6 @@ def choose_schedule(layout: Layout, thresholds: dict | None = None) -> str:
     mx = float(sizes.max())
     cv = float(sizes.std()) / mean
     if mx / mean > t["ratio"] or cv > t["cv"]:
-        # the skew branch may name sorted_flat: column sorting
-        # rebalances skewed tiles as well as degree-class planes do
         return t.get("group", "group_mapped")
     if mx <= t["small"]:
         return "row_mapped"

@@ -3,7 +3,7 @@
 The reference's headline result is a best-of-3-schedules heuristic over
 the full 4,831-matrix SuiteSparse sweep (reference:
 plots/data/heuristics.csv, scripts/run.sh — a ~3-day run dominated by
-.mtx parsing). The zero-egress TPU sandbox can't fetch SuiteSparse, so
+.mtx parsing). An environment with no network can't fetch SuiteSparse, so
 this module generates a ~140-matrix battery that spans the regimes the
 schedules differentiate on:
 

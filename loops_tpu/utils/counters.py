@@ -1,11 +1,11 @@
-"""Per-executable counter collection — the TPU analog of the
-reference's CUPTI metrics integration.
+"""Per-executable counter collection — the analog of the reference's
+CUPTI metrics integration.
 
 The reference's NVBench harness optionally samples hardware counters
 (DRAM throughput, cache hit rates) per kernel
 (reference: benchmarks/spmv/work_oriented.cu:37-44, behind
-``LOOPS_CUPTI_SUPPORTED``). TPUs expose no user-level counter API
-through JAX, but XLA publishes its *compiled cost model* per
+``LOOPS_CUPTI_SUPPORTED``). JAX exposes no hardware counter API, but
+XLA publishes its *compiled cost model* per
 executable — FLOPs, bytes accessed (split per operand), and
 transcendentals — which is the quantity the CUPTI DRAM counters are
 used to derive in the reference's plots. Pairing it with measured wall
@@ -14,7 +14,7 @@ driver hooks.
 
 ``compiled_counters(fn, *args)`` lowers + compiles ``fn`` and returns
 the cost analysis; ``achieved(counters, ms)`` derives utilization
-against the launch box's nominal rates.
+against the launch box's published peaks.
 """
 from __future__ import annotations
 
@@ -44,9 +44,9 @@ def achieved(counters: dict, ms: float, hbm_gbps: float | None = None,
              peak_tflops: float | None = None) -> dict:
     """Derive achieved rates/utilization from cost counters + wall ms.
 
-    Uses the launch box's nominal HBM/peak rates when not given —
-    the same normalization the reference's plots apply to CUPTI DRAM
-    throughput.
+    Uses the launch box's published HBM and bf16 peaks when not given
+    — the same normalization the reference's plots apply to CUPTI DRAM
+    throughput. A device without peaks (the CPU) gets rates only.
     """
     out = {}
     secs = ms * 1e-3
@@ -55,13 +55,10 @@ def achieved(counters: dict, ms: float, hbm_gbps: float | None = None,
     flops = float(counters.get("flops", 0.0))
     byts = float(counters.get("bytes accessed", 0.0))
     if hbm_gbps is None or peak_tflops is None:
-        try:
-            from loops_tpu.tuning.launch_box import launch_params
-            p = launch_params()
-            hbm_gbps = hbm_gbps or p.hbm_gbps
-            peak_tflops = peak_tflops or getattr(p, "peak_tflops", None)
-        except Exception:
-            pass
+        from loops_tpu.tuning.launch_box import launch_params
+        p = launch_params()
+        hbm_gbps = hbm_gbps or p.hbm_gbps
+        peak_tflops = peak_tflops or p.peak_bf16_tflops
     if byts:
         out["achieved_gbps"] = byts / secs / 1e9
         if hbm_gbps:
@@ -69,6 +66,6 @@ def achieved(counters: dict, ms: float, hbm_gbps: float | None = None,
     if flops:
         out["achieved_gflops"] = flops / secs / 1e9
         if peak_tflops:
-            out["mxu_utilization"] = (out["achieved_gflops"]
+            out["flops_utilization"] = (out["achieved_gflops"]
                                       / (peak_tflops * 1e3))
     return out

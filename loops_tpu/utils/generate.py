@@ -26,6 +26,28 @@ def random_csr(rows: int, cols: int, sparsity: float = 0.1,
     return coo.to_csr()
 
 
+def block_sparse(N: int = 4096, R: int = 8, C: int = 128,
+                 block_density: float = 0.06, seed: int = 0):
+    """Square ``N x N`` matrix of dense ``R x C`` blocks at a random
+    ``block_density`` of the block grid; returns ``(csr, bcsr)`` of the
+    same values (normal entries)."""
+    from loops_tpu.formats import BCSR
+
+    rng = np.random.default_rng(seed)
+    nbr, nbc = N // R, N // C
+    nb = int(nbr * nbc * block_density)
+    key = np.unique(rng.integers(0, nbr, nb).astype(np.int64) * nbc
+                    + rng.integers(0, nbc, nb))
+    br = (key // nbc).astype(np.int32)
+    bc = (key % nbc).astype(np.int32)
+    nb = len(key)
+    rr = np.repeat(br * R, R * C) + np.tile(np.repeat(np.arange(R), C), nb)
+    cc = np.repeat(bc * C, R * C) + np.tile(np.tile(np.arange(C), R), nb)
+    vv = rng.normal(size=nb * R * C).astype(np.float32)
+    csr = COO((N, N), rr, cc, vv).to_csr()
+    return csr, BCSR.from_csr(csr, R, C)
+
+
 def identity_csr(n: int, dtype=np.float32) -> CSR:
     i = np.arange(n)
     return CSR((n, n), np.arange(n + 1), i, np.ones(n, dtype=dtype))

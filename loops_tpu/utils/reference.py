@@ -43,13 +43,29 @@ def spmv_f64(csr, x) -> np.ndarray:
     return spmv(csr, x, dtype=np.float64)
 
 
-def spmm(csr, B, dtype=None) -> np.ndarray:
-    """Host CSR x dense SpMM: C[r, :] = sum_nz vals * B[col, :]."""
+def spmm(csr, B, dtype=None, chunk_nnz: int = 1 << 20) -> np.ndarray:
+    """Host CSR x dense SpMM: C[r, :] = sum_nz vals * B[col, :].
+
+    Rows are summed in order, in blocks of about ``chunk_nnz`` nonzeros
+    so the ``[nnz, F]`` products never exist all at once.
+    """
     B = np.asarray(B)
     dtype = dtype or np.result_type(csr.vals.dtype, B.dtype)
-    C = np.zeros((csr.shape[0], B.shape[1]), dtype=dtype)
-    np.add.at(C, csr.row_ids(),
-              csr.vals[:, None].astype(dtype) * B[csr.indices].astype(dtype))
+    rows = csr.shape[0]
+    C = np.zeros((rows, B.shape[1]), dtype=dtype)
+    offs = np.asarray(csr.offsets, np.int64)
+    r = 0
+    while r < rows:
+        r1 = int(np.searchsorted(offs, offs[r] + chunk_nnz, "right")) - 1
+        r1 = min(max(r1, r + 1), rows)
+        a0, a1 = offs[r], offs[r1]
+        if a1 > a0:
+            prod = (csr.vals[a0:a1, None].astype(dtype)
+                    * B[csr.indices[a0:a1]].astype(dtype))
+            live = np.nonzero(offs[r + 1:r1 + 1] > offs[r:r1])[0]
+            C[r + live] = np.add.reduceat(prod, offs[r + live] - a0,
+                                          axis=0)
+        r = r1
     return C
 
 
@@ -137,14 +153,14 @@ def rigorously_validate_spmv(csr, x, y_kernel,
 def rigorously_validate_spmm(csr, B, C_kernel,
                              k: float = DEFAULT_WILKINSON_K,
                              atol_floor: float = DEFAULT_ATOL_FLOOR,
-                             mxu_bf16: bool = True) -> RigorousReport:
+                             bf16_products: bool = False) -> RigorousReport:
     """Wilkinson validation for SpMM, per (row, feature) entry.
 
     Beyond-reference (the reference only validates SpMV): the same
     forward-error bound applies column-wise —
     ``|C[r,f] - C64[r,f]| <= K * nnz_r * u * sum_nz |v * B[col, f]|``.
-    ``mxu_bf16=True`` widens u to bf16's roundoff, the correct bound for
-    default-precision MXU paths (inputs truncated to bf16).
+    ``bf16_products=True`` widens u to bf16's roundoff, the bound for
+    paths that round their inputs or products to bf16.
     """
     B = np.asarray(B)
     C_kernel = np.asarray(C_kernel, np.float64)
@@ -156,7 +172,7 @@ def rigorously_validate_spmm(csr, B, C_kernel,
     l1 = np.zeros_like(C64)
     np.add.at(l1, rid, absprod)
     nnz_r = csr.row_sizes().astype(np.float64)[:, None]
-    u = (float(np.finfo(np.float32).eps) * 256.0 / 2.0 if mxu_bf16
+    u = (float(np.finfo(np.float32).eps) * 256.0 / 2.0 if bf16_products
          else unit_roundoff(np.float32))
     bound = np.maximum(atol_floor, k * nnz_r * u * l1)
 

@@ -1,5 +1,5 @@
 """Size/structure-matched replicas of the reference's SuiteSparse sweep
-population (VERDICT r4 missing #1).
+population.
 
 The reference's performance evidence is 4,831 real SuiteSparse matrices
 (reference: plots/data/heuristics.csv; scripts/run.sh:15-30).  This

@@ -3,8 +3,8 @@
 (aggregation layer) at 1..N devices (north-star config 5: >=80%
 edges/s scaling efficiency).
 
-Runs on whatever devices exist — a real pod slice, or the virtual CPU
-mesh (functional only; CPU numbers do not indicate TPU scaling):
+Runs on whatever devices exist — the GPUs of one host, or the virtual
+CPU mesh (functional only; CPU numbers say nothing of device scaling):
 
     XLA_FLAGS=--xla_force_host_platform_device_count=8 \
     LOOPS_PLATFORM=cpu python scripts/bench_scaling.py --nodes 20000
@@ -41,7 +41,7 @@ def main(argv=None):
     p.add_argument("--feature-dim", type=int, default=128)
     p.add_argument("--iters", type=int, default=10)
     p.add_argument("--volume-model", action="store_true",
-                   help="print the per-layer ICI volume model "
+                   help="print the per-layer exchange volume model "
                         "(predicted bytes + time per protocol) instead "
                         "of wall-clock rates")
     p.add_argument("--reorder", action="store_true",
@@ -53,9 +53,10 @@ def main(argv=None):
                    help="banded ~= mesh/PDE locality (the halo "
                         "protocol's home turf); powerlaw ~= citation "
                         "expanders where all_gather is competitive")
-    p.add_argument("--ici-gbps", type=float, default=200.0,
-                   help="assumed per-chip ICI bandwidth (GB/s); v5e "
-                        "nominal aggregate ~200 GB/s over 4 links")
+    p.add_argument("--link-gbps", type=float, default=450.0,
+                   help="per-card link bandwidth each way (GB/s); "
+                        "NVLink on an H100 host: 450 GB/s each way "
+                        "(NVIDIA H100 data sheet)")
     args = p.parse_args(argv)
 
     if args.graph == "banded":
@@ -92,14 +93,13 @@ def main(argv=None):
     if args.volume_model:
         # exact per-layer exchange volumes from the plan arrays — the
         # paper trail for the >=80% scaling claim without multi-chip
-        # hardware (VERDICT r2 item 8). Predicted exchange time uses
-        # the nominal ICI rate; local-aggregation time uses the
-        # measured single-chip SpMM rate when provided.
+        # hardware. Predicted exchange time uses
+        # the nominal link rate.
         from loops_tpu.parallel import EdgePartition
         from loops_tpu.parallel.halo import HaloPlan
         F = args.feature_dim
-        print(f"\nper-layer ICI volume model (F={F}, f32, "
-              f"ICI={args.ici_gbps:.0f} GB/s/chip nominal):")
+        print(f"\nper-layer exchange volume model (F={F}, f32, "
+              f"link={args.link_gbps:.0f} GB/s/card nominal):")
         print(f"{'P':>3} {'all_gather MB/chip':>19} {'halo MB/chip':>13} "
               f"{'halo(padded)':>13} {'ag ms':>7} {'halo ms':>8} "
               f"{'halo frac of N':>15}")
@@ -123,35 +123,10 @@ def main(argv=None):
             frac = sends / ndev / max(rows_pad, 1)
             print(f"{ndev:3d} {ag_bytes/1e6:19.2f} {halo_bytes/1e6:13.2f} "
                   f"{halo_pad/1e6:13.2f} "
-                  f"{ag_bytes/args.ici_gbps/1e6:7.3f} "
-                  f"{max(halo_bytes, halo_pad)/args.ici_gbps/1e6:8.3f} "
+                  f"{ag_bytes/args.link_gbps/1e6:7.3f} "
+                  f"{max(halo_bytes, halo_pad)/args.link_gbps/1e6:8.3f} "
                   f"{frac:15.1%}")
 
-        # the DCN term (docs/multichip.md): hierarchical host x chip
-        # exchange volumes at every (hosts, chips) factorization
-        from loops_tpu.parallel import HierHaloPlan
-        print("\nhierarchical DCN/ICI volume model "
-              "(total rows x F x 4B per layer):")
-        print(f"{'mesh':>8} {'DCN flat MB':>12} {'DCN hier MB':>12} "
-              f"{'dedup':>7} {'ICI MB':>8}")
-        P_all = counts[-1]
-        # the chip-level partition is invariant across factorizations
-        part = EdgePartition.build(csr, P_all)
-        hosts = 2
-        while hosts < P_all:
-            if P_all % hosts:
-                # HierHaloPlan needs hosts x chips = P_all exactly
-                hosts *= 2
-                continue
-            hier = HierHaloPlan.build(part, hosts, P_all // hosts)
-            st = hier.volume_stats()
-            mb = F * 4 / 1e6
-            print(f"{hosts}x{P_all//hosts:>2}   "
-                  f"{st['dcn_flat_rows']*mb:12.1f} "
-                  f"{st['dcn_hier_rows']*mb:12.1f} "
-                  f"{st['dcn_dedup_factor']:7.2f} "
-                  f"{st['ici_rows']*mb:8.1f}")
-            hosts *= 2
         return 0
 
     results = {}

@@ -1,8 +1,8 @@
 #!/usr/bin/env python
 """Attempt to fetch real datasets (OGB / SuiteSparse) and record the
 outcome — the per-round evidence trail for why the sweep runs on
-synthetic structure (VERDICT r3 missing #1: zero-egress is an
-environment fact, but each round must retry and document it).
+synthetic structure (no network is an environment fact, recorded
+each time it is retried).
 
 Appends one line per attempt to ``sweep_logs/fetch_attempts.log``.
 """

@@ -27,8 +27,7 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from summarize_sweep import load_logs  # noqa: E402
 
-SCHEDS = ("row_mapped", "group_mapped", "work_oriented", "merge_path",
-          "sorted_flat")
+SCHEDS = ("row_mapped", "group_mapped", "work_oriented", "merge_path")
 
 
 def features(csr):
@@ -101,24 +100,6 @@ def main(argv=None):
     print(f"oracle geomean:      {oracle:.4f} ms "
           f"({gms[fixed]/oracle:.2f}x over fixed {fixed})")
 
-    # reference-analog four-schedule study: the reference's best-of-3
-    # selection thesis is measured among its own schedules
-    # (plots/data/heuristics.csv); sorted_flat has no reference analog,
-    # so report the selection value among the four ports too
-    REF4 = tuple(s for s in SCHEDS if s != "sorted_flat")
-    gms4 = {s: geomean([runs[ds][s] for ds in names]) for s in REF4}
-    fixed4 = min(gms4, key=gms4.get)
-    oracle4 = geomean([min(runs[ds][s] for s in REF4) for ds in names])
-    wins4 = {s: 0 for s in REF4}
-    for r in runs.values():
-        wins4[min(REF4, key=lambda s: r[s])] += 1
-    mix4 = "/".join(f"{s}:{wins4[s]}" for s in REF4)
-    print(f"\nfour-schedule (reference-analog) study: best fixed "
-          f"{fixed4} {gms4[fixed4]:.4f} ms; oracle {oracle4:.4f} ms "
-          f"({gms4[fixed4]/oracle4:.2f}x over fixed); mix {mix4}")
-    print(f"sorted_flat vs four-schedule oracle: "
-          f"{oracle4/gms['sorted_flat']:.2f}x geomean")
-
     def capture(t_ratio, t_cv, t_small, flat="merge_path",
                 group="group_mapped"):
         chosen = [runs[ds][pick(feats[ds], t_ratio, t_cv, t_small, flat,
@@ -126,7 +107,7 @@ def main(argv=None):
                   for ds in names]
         return oracle / geomean(chosen)   # 1.0 = matches oracle
 
-    from loops_tpu.schedule.plans import HEURISTIC_THRESHOLDS as CUR
+    from loops_tpu.schedule.plans import HEURISTIC_THRESHOLDS_XLA as CUR
     cur_t = (CUR["ratio"], CUR["cv"], CUR["small"],
              CUR.get("flat", "merge_path"),
              CUR.get("group", "group_mapped"))
@@ -141,9 +122,8 @@ def main(argv=None):
     for t_ratio in (1.25, 1.5, 2, 4, 8, 16, 32, 64, 1e18):
         for t_cv in (0.125, 0.25, 0.5, 1.0, 2.0, 4.0, 8.0, 1e18):
             for t_small in (0, 2, 4, 8, 16, 32):
-                for flat in ("merge_path", "work_oriented",
-                             "sorted_flat"):
-                    for group in ("group_mapped", "sorted_flat"):
+                for flat in ("merge_path", "work_oriented"):
+                    for group in ("group_mapped",):
                         c = capture(t_ratio, t_cv, t_small, flat, group)
                         if c > best[0]:
                             best = (c, (t_ratio, t_cv, t_small, flat,
@@ -156,7 +136,7 @@ def main(argv=None):
 
     # speedup vs the vendor sparse library (reference headline:
     # best-of-schedules geomean 2.66x over cuSPARSE on >1x 99.0% of
-    # matrices — plots/data/heuristics.csv). TPU vendor = BCOO matvec.
+    # matrices — plots/data/heuristics.csv). Vendor here = BCOO matvec.
     vds = [ds for ds in names if ds in vendor]
     if vds:
         h_ms = {ds: runs[ds][pick(feats[ds], tr, tc, ts, tf, tg)]

@@ -1,16 +1,15 @@
-"""Out-of-core store -> virtual-mesh train step at >=10M nodes
-(VERDICT r4 missing #2, second half).
+"""Out-of-core store -> virtual-mesh train step at >=10M nodes.
 
 Stages the GCN-normalized adjacency of a 10M-node power-law graph into
-a memmapped ShardedCSR (hosts = shards), assembles the mesh partition
-with ``EdgePartition.from_shards`` (no global CSR in device memory),
-and trains a DistGCN through the hierarchical DCN/ICI exchange on the
-virtual (hosts x chips) CPU mesh — the full papers100M pipeline shape,
-scaled to what one machine holds.
+a memmapped ShardedCSR, assembles the mesh partition with
+``EdgePartition.from_shards`` (no global CSR in device memory), and
+trains a DistGCN through the halo exchange on the virtual CPU mesh of
+``shards x chips`` devices — the papers100M pipeline shape, scaled to
+what one machine holds.
 
     XLA_FLAGS=--xla_force_host_platform_device_count=8 \
     LOOPS_PLATFORM=cpu python scripts/outofcore_mesh_train.py \
-        --nodes 10000000 --avg-deg 8 --hosts 2 --chips 4 --feat 32
+        --nodes 10000000 --avg-deg 8 --shards 2 --chips 4 --feat 32
 """
 from __future__ import annotations
 
@@ -43,18 +42,17 @@ def main(argv=None):
 
     from loops_tpu.formats import CSR
     from loops_tpu.io.shards import ShardedCSR
-    from loops_tpu.parallel import DistGCN, EdgePartition
-    from loops_tpu.parallel.mesh import make_mesh_hier
+    from loops_tpu.parallel import DistGCN, EdgePartition, make_mesh
 
     p = argparse.ArgumentParser()
     p.add_argument("--nodes", type=int, default=10_000_000)
     p.add_argument("--avg-deg", type=int, default=8)
-    p.add_argument("--hosts", type=int, default=2)
+    p.add_argument("--shards", type=int, default=2)
     p.add_argument("--chips", type=int, default=4)
     p.add_argument("--feat", type=int, default=32)
     p.add_argument("--classes", type=int, default=16)
     p.add_argument("--steps", type=int, default=3)
-    p.add_argument("--dir", default="/tmp/loops_tpu_mesh_shards")
+    p.add_argument("--dir", default="sweep_logs/mesh_shards")
     args = p.parse_args(argv)
 
     n = args.nodes
@@ -73,10 +71,10 @@ def main(argv=None):
 
     shutil.rmtree(args.dir, ignore_errors=True)
     t0 = time.perf_counter()
-    store = ShardedCSR.build(norm, args.hosts, args.dir)
+    store = ShardedCSR.build(norm, args.shards, args.dir)
     nbytes = sum(os.path.getsize(f"{args.dir}/{f}")
                  for f in os.listdir(args.dir))
-    print(f"stage: {args.hosts} shards, {nbytes/2**20:.0f} MiB "
+    print(f"stage: {args.shards} shards, {nbytes/2**20:.0f} MiB "
           f"({time.perf_counter()-t0:.1f}s)", flush=True)
 
     t0 = time.perf_counter()
@@ -85,9 +83,9 @@ def main(argv=None):
           f"nnz_pd={part.nnz_per_dev:,} "
           f"({time.perf_counter()-t0:.1f}s)", flush=True)
 
-    mesh = make_mesh_hier(args.hosts, args.chips)
+    mesh = make_mesh(args.shards * args.chips)
     dims = [args.feat, 32, args.classes]
-    model = DistGCN(None, dims, mesh, exchange="hier", plan=part)
+    model = DistGCN(None, dims, mesh, plan=part)
 
     rng = np.random.default_rng(0)
     X = rng.normal(size=(n, args.feat)).astype(np.float32)
@@ -110,7 +108,7 @@ def main(argv=None):
     ms = (time.perf_counter() - t0) / args.steps * 1e3
     eps = norm.nnz * 2 * (len(dims) - 1) / (ms * 1e-3)
     print(f"train: {ms:.0f} ms/step ({eps/1e6:.1f} M layer-edges/s "
-          f"fwd+bwd, {args.hosts}x{args.chips} virtual mesh), "
+          f"fwd+bwd, {args.shards * args.chips}-device virtual mesh), "
           f"final loss={float(loss):.4f}", flush=True)
     first = float(loss)
     assert np.isfinite(first)

@@ -29,7 +29,6 @@ COLORS = {
     "group_mapped": "#eb6834",
     "work_oriented": "#1baf7a",
     "merge_path": "#eda100",
-    "sorted_flat": "#9356c8",
 }
 SURFACE, INK, MUTED = "#fcfcfb", "#0b0b0b", "#52514e"
 

@@ -9,7 +9,7 @@ TIMEOUT=${3:-60}
 mkdir -p "$OUT"
 for mtx in "$DATASETS"/*.mtx; do
   [ -e "$mtx" ] || continue
-  for sched in row_mapped group_mapped work_oriented merge_path sorted_flat; do
+  for sched in row_mapped group_mapped work_oriented merge_path; do
     timeout "$TIMEOUT" python examples/spmv.py -m "$mtx" \
       --schedule "$sched" 2>/dev/null | head -1 >> "$OUT/$sched.csv" \
       || echo "TIMEOUT,$(basename "$mtx")" >> "$OUT/$sched.csv"

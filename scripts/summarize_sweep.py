@@ -40,7 +40,7 @@ def load_logs(d):
 
 
 SCHEDULES = ("row_mapped", "group_mapped", "work_oriented",
-             "merge_path", "sorted_flat")
+             "merge_path")
 
 
 def main(argv):

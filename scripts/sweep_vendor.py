@@ -4,7 +4,7 @@ same synthetic battery as sweep_battery.py.
 
 The reference's headline number is best-of-3-schedules speedup vs the
 *vendor* sparse library (cuSPARSE): geomean 2.66x over 4,831 matrices
-(/root/reference/plots/data/{cusparse,heuristics}.csv). On TPU the
+(the reference's plots/data/{cusparse,heuristics}.csv). Here the
 vendor analog is XLA's own sparse support, jax.experimental.sparse
 (BCOO + bcoo_dot_general). This writes a ``vendor.csv`` log in the
 same reference row format next to the schedule logs, so

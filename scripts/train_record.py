@@ -3,8 +3,8 @@
 config 4: 3-layer GCN and GraphSAGE, accuracy-matched).
 
 Trains each model twice on the same dataset/seed — through the exact
-f32 aggregation path and through the TPU throughput path (auto-routed
-flat Pallas bf16 SpMM, models/message_passing.py) — and prints a
+f32 aggregation path and through the bf16 throughput path (auto-routed
+aggregation, models/message_passing.py) — and prints a
 markdown table of test accuracy and train-step throughput. The
 accuracy-matched claim of the kernel tier is exactly this table: the
 throughput path must land within noise of the exact path.
@@ -44,7 +44,7 @@ def run_one(ds, model_name, mode, epochs, lr, hidden, seed):
     if mode == "throughput":
         kw = dict(schedule="auto", dtype="bfloat16")
     elif mode == "exact":
-        kw = dict(schedule="group_mapped", impl="xla")
+        kw = dict(schedule="group_mapped")
     if model_name == "gcn":
         if mode == "throughput":
             kw["precompute_first"] = True   # (AX)W1 hoist, exact

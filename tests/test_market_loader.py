@@ -193,3 +193,14 @@ def test_save_accepts_coo(tmp_path):
     got = market.load(p)
     dense = got.to_dense()
     assert dense[0, 1] == 2.5 and dense[2, 0] == -1.0
+
+
+@pytest.mark.parametrize("text", [GENERAL, SYMMETRIC, PATTERN, INTEGER])
+def test_numpy_parser_without_native(monkeypatch, text):
+    """With no native tokenizer, the numpy path loads the same matrix."""
+    import loops_tpu.native as native
+
+    want = market.load(text).to_csr().to_dense()
+    monkeypatch.setattr(native, "mtx_parse", lambda *a: None)
+    got = market.load(text).to_csr().to_dense()
+    np.testing.assert_array_equal(got, want)

@@ -319,7 +319,10 @@ def test_make_train_epochs_matches_manual_loop():
         assert np.allclose(np.asarray(a), np.asarray(b), atol=1e-5)
 
 
-def test_aggregate_operator_flat_pallas_matches_group_mapped():
+@pytest.mark.parametrize("dtype", [None, "bfloat16"])
+def test_aggregate_operator_row_mapped_matches_group_mapped(dtype):
+    """The auto route (row_mapped) and the degree-class planes
+    (group_mapped) give the same aggregation."""
     import numpy as np
 
     from loops_tpu.models.graph import Graph
@@ -329,10 +332,57 @@ def test_aggregate_operator_flat_pallas_matches_group_mapped():
     csr = generate.random_csr(50, 50, 0.12, seed=13)
     g = Graph(csr)
     h = np.random.default_rng(0).normal(size=(50, 16)).astype(np.float32)
-    base = np.asarray(aggregate_operator(g, custom_vjp=False)(h))
-    flat = np.asarray(aggregate_operator(
-        g, schedule="merge_path", impl="pallas", custom_vjp=False)(h))
-    assert np.allclose(flat, base, atol=1e-4, rtol=1e-4)
+    base = np.asarray(aggregate_operator(
+        g, schedule="group_mapped", custom_vjp=False, dtype=dtype)(h))
+    rows = np.asarray(aggregate_operator(g, custom_vjp=False,
+                                         dtype=dtype)(h))
+    tol = 1e-4 if dtype is None else 3e-2
+    assert np.allclose(rows, base, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_auto_aggregation_is_row_mapped(masked):
+    """``schedule="auto"`` aggregation runs row_mapped on every backend,
+    forward and backward."""
+    import numpy as np
+
+    from loops_tpu.models.graph import Graph
+    from loops_tpu.models.message_passing import (
+        aggregate_operator,
+        masked_aggregate_operator,
+    )
+    from loops_tpu.utils import generate
+
+    g = Graph(generate.random_csr(20, 20, 0.2, seed=1))
+    op = (masked_aggregate_operator(g, np.arange(0, 20, 3)) if masked
+          else aggregate_operator(g, op="sum"))
+    assert op.schedule == "row_mapped"
+    assert op._vjp_op.schedule == "row_mapped"
+
+
+@pytest.mark.parametrize("kind", ["bool", "float", "int", "indices"])
+def test_masked_aggregate_accepts_any_mask_form(kind):
+    """A 0/1 mask of the node count's length is a mask whatever its
+    dtype; anything else is row indices."""
+    import numpy as np
+
+    from loops_tpu.models.graph import Graph
+    from loops_tpu.models.message_passing import masked_aggregate_operator
+    from loops_tpu.utils import generate
+
+    n = 40
+    g = Graph(generate.random_csr(n, n, 0.15, seed=3))
+    mask = np.zeros(n, bool)
+    mask[[1, 2, 7, 30]] = True
+    rows = {"bool": mask, "float": mask.astype(np.float32),
+            "int": mask.astype(np.int32),
+            "indices": np.array([1, 2, 7, 30])}[kind]
+    op = masked_aggregate_operator(g, rows)
+    assert np.array_equal(op.rows, [1, 2, 7, 30])
+    h = np.random.default_rng(0).normal(size=(n, 5)).astype(np.float32)
+    full = np.asarray(masked_aggregate_operator(g, np.ones(n, bool))._fn(h))
+    np.testing.assert_allclose(np.asarray(op._fn(h)), full[[1, 2, 7, 30]],
+                               rtol=1e-5, atol=1e-6)
 
 
 def test_gcn_precompute_first_matches():

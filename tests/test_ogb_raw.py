@@ -1,7 +1,7 @@
 """Raw-OGB reader fixture test: stage a tiny fake OGB directory (the
 real raw CSV(.gz) schema) and drive io/ogb.py's real-data path
 end-to-end — so the loader is proven before real data exists in the
-zero-egress sandbox (VERDICT r1 item 7)."""
+offline environment."""
 import gzip
 import os
 

@@ -1,15 +1,13 @@
-"""Pallas entry-point hardening: f64 and over-span inputs must fall
-back to the XLA path with a warning (never silently downcast or blow
-up), and formats must reject schedule/impl knobs they do not honor."""
+"""Kernel entry-point hardening: f64 inputs to the BCSR kernel fall back
+to the XLA path with a warning (never silently downcast), formats reject
+schedules they do not honor, and only BCSR SpMM takes a kernel impl."""
 import numpy as np
 import pytest
 
 from loops_tpu.formats import BCSR, DIA, ELL
 from loops_tpu.ops import spmm, spmv
-from loops_tpu.ops.spmv import SpMVOperator
 from loops_tpu.ops.spmm import SpMMOperator
 from loops_tpu.utils import generate, reference
-from loops_tpu.utils.equal import count_mismatches
 
 
 def _csr64(seed=5):
@@ -26,67 +24,27 @@ class _x64:
         jax.config.update("jax_enable_x64", False)
 
 
-def test_spmv_pallas_f64_falls_back_with_warning():
-    csr64 = _csr64()
-    x = generate.make_input_vector(csr64.shape[1], dtype=np.float64)
-    with _x64():
-        with pytest.warns(UserWarning, match="float64"):
-            op = SpMVOperator(csr64, "merge_path", block=16, impl="pallas")
-        y = np.asarray(op(x))
-    # full f64 precision preserved (an f32 downcast would fail 1e-12)
-    y_ref = reference.spmv(csr64, x, dtype=np.float64)
-    np.testing.assert_allclose(y, y_ref, rtol=1e-12, atol=1e-12)
-
-
-def test_spmm_pallas_f64_falls_back_with_warning():
-    csr64 = _csr64()
-    B = np.random.default_rng(0).normal(size=(csr64.shape[1], 16))
-    with _x64():
-        with pytest.warns(UserWarning, match="float64"):
-            op = SpMMOperator(csr64, "merge_path", impl="pallas", block=16)
-        C = np.asarray(op(B))
-    C_ref = reference.spmm(csr64, B, dtype=np.float64)
-    np.testing.assert_allclose(C, C_ref, rtol=1e-12, atol=1e-12)
-
-
 def test_spmm_bcsr_pallas_f64_falls_back_with_warning():
     csr64 = _csr64()
     bcsr = BCSR.from_csr(csr64, 8, 128)
     B = np.random.default_rng(1).normal(size=(csr64.shape[1], 8))
     with _x64():
         with pytest.warns(UserWarning, match="float64"):
-            op = SpMMOperator(bcsr, "row_mapped", impl="pallas2")
+            op = SpMMOperator(bcsr, "row_mapped", impl="pallas")
         C = np.asarray(op(B))
     np.testing.assert_allclose(C, reference.spmm(csr64, B,
                                                  dtype=np.float64),
                                rtol=1e-12, atol=1e-12)
 
 
-def test_work_oriented_overspan_falls_back_with_warning():
-    # nonzeros only in rows 0 and 8000: the even atom split puts both
-    # rows in one block => its row span (8001) exceeds the kernels'
-    # static 4096 bound
-    from loops_tpu.formats import COO
-    r = np.concatenate([np.zeros(10, np.int64),
-                        np.full(10, 8000, np.int64)])
-    c = np.tile(np.arange(10), 2)
-    csr = COO((8192, 64), r, c, np.ones(20, np.float32)).to_csr()
-    x = generate.make_input_vector(64)
-    with pytest.warns(UserWarning, match="span"):
-        op = SpMVOperator(csr, "work_oriented", block=16, impl="pallas")
-    y = np.asarray(op(x))
-    assert count_mismatches(y, reference.spmv(csr, x),
-                            atol=1e-3, rtol=1e-4) == 0
-
-
 @pytest.mark.parametrize("fmt,kw", [
     ("csc", dict(schedule="merge_path")),
-    ("csc", dict(schedule="row_mapped", impl="pallas")),
+    ("csc", dict(schedule="group_mapped")),
     ("dia", dict(schedule="work_oriented")),
     ("bcsr", dict(schedule="group_mapped")),
-    ("bcsr", dict(schedule="row_mapped", impl="pallas2")),
-    ("coo", dict(schedule="row_mapped", impl="pallas")),
-    ("ell", dict(schedule="row_mapped", impl="pallas")),
+    ("bcsr", dict(schedule="merge_path")),
+    ("coo", dict(schedule="thread_mapped")),
+    ("ell", dict(schedule="thread_mapped")),
 ])
 def test_spmv_rejects_unhonored_knobs(fmt, kw):
     csr = generate.random_csr(24, 30, 0.2, seed=7)
@@ -96,13 +54,6 @@ def test_spmv_rejects_unhonored_knobs(fmt, kw):
     x = generate.make_input_vector(csr.shape[1])
     with pytest.raises(ValueError):
         spmv(mat, x, **kw)
-
-
-def test_spmv_csr_rejects_pallas_for_row_mapped():
-    csr = generate.random_csr(24, 30, 0.2, seed=7)
-    x = generate.make_input_vector(csr.shape[1])
-    with pytest.raises(ValueError):
-        spmv(csr, x, schedule="row_mapped", impl="pallas")
 
 
 def test_spmm_rejects_unhonored_knobs():
@@ -117,3 +68,21 @@ def test_spmm_rejects_unhonored_knobs():
         spmm(ELL.from_csr(csr), B, schedule="group_mapped")
     with pytest.raises(ValueError):
         spmm(BCSR.from_csr(csr, 8, 128), B, impl="mosaic")
+
+
+@pytest.mark.parametrize("schedule", ["merge_path", "group_mapped",
+                                      "auto"])
+def test_spmm_csr_rejects_kernel_impl(schedule):
+    csr = generate.random_csr(24, 30, 0.2, seed=7)
+    with pytest.raises(ValueError):
+        SpMMOperator(csr, schedule, impl="pallas")
+
+
+@pytest.mark.parametrize("fmt", ["coo", "ell"])
+def test_spmm_kernel_impl_is_bcsr_only(fmt):
+    """impl='pallas' names the BCSR kernel; other formats refuse it
+    instead of silently running XLA."""
+    csr = generate.random_csr(24, 30, 0.2, seed=7)
+    mat = {"coo": csr.to_coo, "ell": lambda: ELL.from_csr(csr)}[fmt]()
+    with pytest.raises(ValueError, match="BCSR"):
+        SpMMOperator(mat, impl="pallas")

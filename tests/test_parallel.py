@@ -304,48 +304,12 @@ def test_halo_plan_build_p64():
     assert (counts.T >= 0).all() and counts.shape == (64, 64)
 
 
-def test_hier_plan_and_dist_spmm_matches_oracle():
-    """Two-stage (host x chip) exchange == the flat single-device SpMM,
-    on a virtual 2x4 mesh."""
-    from loops_tpu.parallel import DistSpMMHier, HierHaloPlan
-    from loops_tpu.parallel.mesh import make_mesh_hier
-
-    g = _graph(48, seed=4)
-    csr = g.adj
-    mesh = make_mesh_hier(2, 4)
-    plan = EdgePartition.build(csr, 8)
-    hier = HierHaloPlan.build(plan, 2, 4)
-    # remapped indices stay in [0, R + chips*Hi)
-    assert hier.indices_local.max() < plan.rows_per_dev + 4 * hier.Hi
-    op = DistSpMMHier(hier, mesh)
-    X = np.random.default_rng(5).normal(size=(48, 6)).astype(np.float32)
-    h = plan.pad_features(X)
-    got = plan.unpad_output(np.asarray(op(h)))
-    expect = reference.spmm(csr, X)
-    np.testing.assert_allclose(got, expect, rtol=1e-4, atol=1e-4)
-
-
-def test_hier_dcn_volume_deduplicates_across_chips():
-    """The DCN stage ships each (src host, dst host, row) once; the flat
-    all_to_all ships it once per requesting chip — on a graph whose rows
-    are referenced by many chips the dedup factor must exceed 1."""
-    from loops_tpu.parallel import HierHaloPlan
-
-    g = _graph(96, seed=11)  # dense-ish random: heavy cross references
-    plan = EdgePartition.build(g.adj, 8)
-    hier = HierHaloPlan.build(plan, 2, 4)
-    stats = hier.volume_stats()
-    assert stats["dcn_hier_rows"] <= stats["dcn_flat_rows"]
-    assert stats["dcn_dedup_factor"] > 1.5, stats
-
-
-def test_hier_dist_gcn_trains_and_matches_flat():
-    """DistGCN with exchange='hier' on a 2x4 mesh: same loss trace as
-    the flat-mesh halo exchange (both are exact)."""
+@pytest.mark.parametrize("n_dev", [2, 4])
+def test_halo_dist_gcn_trains_and_matches_all_gather(n_dev):
+    """DistGCN through the default overlapped halo all_to_all on a 1-D
+    mesh: same loss trace as the all_gather oracle (both are exact)."""
     import jax
     import optax
-
-    from loops_tpu.parallel.mesh import make_mesh_hier
 
     g = _graph(32, seed=8)
     rng = np.random.default_rng(9)
@@ -354,11 +318,8 @@ def test_hier_dist_gcn_trains_and_matches_flat():
     mask = np.ones(32, np.float32)
 
     losses = {}
-    for name, (mesh, exch) in {
-        "flat": (make_mesh(8), "halo"),
-        "hier": (make_mesh_hier(2, 4), "hier"),
-    }.items():
-        model = DistGCN(g, [4, 8, 3], mesh, exchange=exch)
+    for exch in ("halo", "all_gather"):
+        model = DistGCN(g, [4, 8, 3], make_mesh(n_dev), exchange=exch)
         params = model.init(jax.random.PRNGKey(1))
         opt = optax.adam(5e-2)
         step = model.make_train_step(opt, X, y, mask)
@@ -367,10 +328,23 @@ def test_hier_dist_gcn_trains_and_matches_flat():
         for _ in range(10):
             params, opt_state, loss = step(params, opt_state)
             tr.append(float(loss))
-        losses[name] = tr
-    assert np.isfinite(losses["hier"]).all()
-    np.testing.assert_allclose(losses["hier"], losses["flat"],
+        losses[exch] = tr
+    assert np.isfinite(losses["halo"]).all()
+    np.testing.assert_allclose(losses["halo"], losses["all_gather"],
                                rtol=1e-4, atol=1e-5)
+
+
+def test_halo_buffers_sharded_over_distinct_devices():
+    """Every staged halo buffer puts one shard on each mesh device."""
+    import jax
+
+    g = _graph(48, seed=4)
+    mesh = make_mesh(4)
+    model = DistGCN(g, [4, 8, 3], mesh)
+    for buf in model.propagate.buffers:
+        placed = [s.device for s in buf.addressable_shards]
+        assert len(placed) == 4
+        assert set(placed) == set(jax.devices()[:4])
 
 
 def test_dist_spmm_feature_axis_on_2d_mesh():

@@ -1,5 +1,5 @@
 """Scale- and adversarial-stress tests for the multi-chip tier on the
-8-device virtual CPU mesh (VERDICT r4 weak #6).
+8-device virtual CPU mesh.
 
 The toy-graph tests in test_parallel.py prove the protocols; these
 prove the *static-shape padding math* where it actually breaks: 1e5-1e6
@@ -9,19 +9,11 @@ its row-count extreme.  Every case must match the single-device oracle
 exactly (same float path), not just approximately learn.
 """
 import numpy as np
-import pytest
 
 from loops_tpu.formats import CSR
 from loops_tpu.models import Graph
-from loops_tpu.parallel import (
-    DistSpMM,
-    DistSpMMHier,
-    EdgePartition,
-    HierHaloPlan,
-    make_mesh,
-)
+from loops_tpu.parallel import DistSpMM, EdgePartition, make_mesh
 from loops_tpu.parallel.halo import DistSpMMHalo, HaloPlan
-from loops_tpu.parallel.mesh import make_mesh_hier
 from loops_tpu.utils import reference
 
 
@@ -32,8 +24,8 @@ def _random_graph(n, deg, seed):
                             n, make_undirected=True)
 
 
-def _check_all_protocols(csr, X, *, atol=1e-3, protocols=("all_gather",
-                                                          "halo", "hier")):
+def _check_all_protocols(csr, X, *, atol=1e-3,
+                         protocols=("all_gather", "halo")):
     """Run each exchange protocol over the 8-device mesh; every output
     must match the host oracle."""
     expect = reference.spmm(csr, X)
@@ -47,10 +39,6 @@ def _check_all_protocols(csr, X, *, atol=1e-3, protocols=("all_gather",
         halo = HaloPlan.build(plan)
         op = DistSpMMHalo(halo, make_mesh(8), overlap=True)
         outs["halo"] = plan.unpad_output(np.asarray(op(h)))
-    if "hier" in protocols:
-        hier = HierHaloPlan.build(plan, 2, 4)
-        op = DistSpMMHier(hier, make_mesh_hier(2, 4))
-        outs["hier"] = plan.unpad_output(np.asarray(op(h)))
     for name, got in outs.items():
         np.testing.assert_allclose(
             got, expect, rtol=1e-4, atol=atol,
@@ -69,14 +57,14 @@ def test_scale_1e5_all_protocols():
     assert stats["max_halo"] > 1000  # genuinely large-scale halos
 
 
-def test_scale_1e6_halo_and_hier():
+def test_scale_1e6_halo():
     """10^6 nodes / ~4M edges: the largest virtual-mesh case; skip the
-    all_gather oracle protocol (it is O(P * n) memory) and check the two
-    production exchanges against the host oracle directly."""
+    all_gather oracle protocol (it is O(P * n) memory) and check the
+    production exchange against the host oracle directly."""
     g = _random_graph(1_000_000, 2, seed=3)
     X = np.random.default_rng(4).normal(
         size=(1_000_000, 4)).astype(np.float32)
-    _check_all_protocols(g.adj, X, atol=1e-2, protocols=("halo", "hier"))
+    _check_all_protocols(g.adj, X, atol=1e-2, protocols=("halo",))
 
 
 def _csr_from_coo(rows, cols, n):
@@ -150,29 +138,19 @@ def test_row_hub_huge_degree():
     _check_all_protocols(csr, X)
 
 
-def test_hier_hosts_mismatch_raises():
-    """HierHaloPlan requires hosts * chips == num_devices exactly."""
-    g = _random_graph(256, 4, seed=9)
-    plan = EdgePartition.build(g.adj, 8)
-    with pytest.raises(ValueError):
-        HierHaloPlan.build(plan, 3, 4)
-
-
 def test_from_shards_scale_1e6(tmp_path):
     """Out-of-core glue at scale: a 1M-node graph staged to a 2-shard
     memmapped store, assembled via EdgePartition.from_shards (no global
-    CSR), trained through the hier 2x4 exchange — matches the host
-    oracle exactly."""
+    CSR), propagated through the halo exchange on the 8-device mesh —
+    matches the host oracle exactly."""
     from loops_tpu.io.shards import ShardedCSR
-    from loops_tpu.parallel.hier import DistSpMMHier
 
     g = _random_graph(1_000_000, 2, seed=11)
     store = ShardedCSR.build(g.adj, 2, str(tmp_path / "st"))
     part = EdgePartition.from_shards(store, chips_per_shard=4)
     assert part.num_devices == 8
     assert part.row_starts[4] == store.row_starts[1]
-    hier = HierHaloPlan.build(part, 2, 4)
-    op = DistSpMMHier(hier, make_mesh_hier(2, 4))
+    op = DistSpMMHalo(HaloPlan.build(part), make_mesh(8), overlap=True)
     X = np.random.default_rng(1).normal(
         size=(1_000_000, 4)).astype(np.float32)
     got = part.unpad_output(np.asarray(op(part.pad_features(X))))

@@ -61,11 +61,10 @@ def test_spmv_operator_reorder_option():
     x = generate.make_input_vector(60, seed=6)
     expect = reference.spmv(csr, x)
     for order in ("degree", "bfs"):
-        op = SpMVOperator(csr, schedule="merge_path", impl="xla",
-                          reorder=order)
+        op = SpMVOperator(csr, schedule="merge_path", reorder=order)
         got = np.asarray(op(x))
         np.testing.assert_allclose(got, expect, rtol=1e-4, atol=1e-5)
-    # sorted_flat through the permuted plan
-    op = SpMVOperator(csr, schedule="sorted_flat", reorder="degree")
+    # degree-class planes through the permuted plan
+    op = SpMVOperator(csr, schedule="group_mapped", reorder="degree")
     got = np.asarray(op(x))
     np.testing.assert_allclose(got, expect, rtol=1e-4, atol=1e-5)

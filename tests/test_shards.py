@@ -110,50 +110,53 @@ def test_native_unique_remap_rejects_out_of_range():
     assert unique_remap(cols, 10) is None
 
 
-@pytest.mark.parametrize("dtype", [None, "bfloat16"])
-def test_streamed_spmm_merge_path_pallas(dtype):
-    """Flat Pallas kernel through the streamed out-of-core path: one
-    executable, every shard staged to the common padded shape."""
+@pytest.mark.parametrize("shards", [1, 5])
+def test_streamed_spmm_shares_one_executable(shards):
+    """Every shard is padded to the store-wide maxima, so the jitted
+    local SpMM compiles once for all of them."""
     csr = generate.random_csr(300, 300, 0.03, seed=6)
     d = tempfile.mkdtemp()
     try:
-        st = ShardedCSR.build(csr, 5, d)
+        st = ShardedCSR.build(csr, shards, d)
         X = np.random.default_rng(1).normal(
             size=(300, 48)).astype(np.float32)
-        sp = StreamedSpMM(st, schedule="merge_path", dtype=dtype)
+        sp = StreamedSpMM(st)
         out = sp(X)
+        assert sp._jit._cache_size() == 1
         ref = csr.to_dense() @ X
-        tol = 0.05 if dtype else 1e-4
-        assert np.allclose(out, ref, atol=tol, rtol=tol), (
+        assert np.allclose(out, ref, atol=1e-4, rtol=1e-4), (
             np.abs(out - ref).max())
     finally:
         shutil.rmtree(d)
 
 
-def test_streamed_spmm_merge_path_skewed():
+def test_streamed_spmm_skewed_and_unknown_schedule():
     csr = generate.skewed_csr(200, 200, heavy_rows=4)
     d = tempfile.mkdtemp()
     try:
         st = ShardedCSR.build(csr, 3, d)
         X = np.random.default_rng(2).normal(
             size=(200, 16)).astype(np.float32)
-        out = StreamedSpMM(st, schedule="merge_path")(X)
+        out = StreamedSpMM(st)(X)
         ref = csr.to_dense() @ X
         assert np.allclose(out, ref, atol=1e-4, rtol=1e-4)
+        # one execution shape: a schedule argument is refused, not
+        # silently ignored
+        with pytest.raises(TypeError):
+            StreamedSpMM(st, schedule="merge_path")
     finally:
         shutil.rmtree(d)
 
 
 def test_edge_partition_from_shards_matches_global(tmp_path):
     """Out-of-core glue: EdgePartition.from_shards (per-shard memmaps,
-    hosts = shards, chips subdivide) produces a partition whose
-    distributed hier SpMM matches the single-device oracle."""
+    chips subdivide each shard) produces a partition whose distributed
+    halo SpMM matches the single-device oracle."""
     import numpy as np
 
     from loops_tpu.io.shards import ShardedCSR
-    from loops_tpu.parallel import EdgePartition, HierHaloPlan
-    from loops_tpu.parallel.hier import DistSpMMHier
-    from loops_tpu.parallel.mesh import make_mesh_hier
+    from loops_tpu.parallel import EdgePartition, make_mesh
+    from loops_tpu.parallel.halo import DistSpMMHalo, HaloPlan
     from loops_tpu.utils import generate, reference
 
     csr = generate.random_csr(96, 96, 0.08, seed=13)
@@ -163,13 +166,10 @@ def test_edge_partition_from_shards_matches_global(tmp_path):
     assert part.row_starts[0] == 0 and part.row_starts[-1] == 96
     total = sum(int(part.offsets[p, -1]) for p in range(8))
     assert total == csr.nnz
-    # shard boundaries land on the host axis: devices 0-3 cover
-    # shard 0's row range exactly
+    # devices 0-3 cover shard 0's row range exactly
     assert part.row_starts[4] == store.row_starts[1]
 
-    hier = HierHaloPlan.build(part, 2, 4)
-    mesh = make_mesh_hier(2, 4)
-    op = DistSpMMHier(hier, mesh)
+    op = DistSpMMHalo(HaloPlan.build(part), make_mesh(8), overlap=True)
     X = np.random.default_rng(5).normal(size=(96, 6)).astype(np.float32)
     got = part.unpad_output(np.asarray(op(part.pad_features(X))))
     np.testing.assert_allclose(got, reference.spmm(csr, X),

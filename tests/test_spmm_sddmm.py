@@ -31,6 +31,27 @@ def test_spmm_csr(name, schedule):
     assert count_mismatches(C, C_ref, atol=1e-3, rtol=1e-4) == 0
 
 
+@pytest.mark.parametrize("dtype", [None, "bfloat16"])
+@pytest.mark.parametrize("schedule", ["row_mapped", "group_mapped"])
+@pytest.mark.parametrize("name", ["uni_n2048_d8_s0", "pl_n4096_d4_a1.6",
+                                  "empty_n2048_e16", "heavy_n4096_r16_k512"])
+def test_spmm_csr_structure_families(name, schedule, dtype):
+    """The two GNN aggregation routes (row_mapped on the GPU,
+    group_mapped elsewhere) over battery structure families; bf16
+    within three roundings (value, operand, product) of the reference."""
+    from loops_tpu.utils import battery
+
+    csr = battery.build(name, max_rows=4096)
+    B = _B(csr.shape[1], 16)
+    C = np.asarray(spmm(csr, B, schedule=schedule, dtype=dtype))
+    ref = reference.spmm(csr, B, dtype=np.float64)
+    from loops_tpu.formats import CSR
+    l1 = reference.spmm(CSR(csr.shape, csr.offsets, csr.indices,
+                            np.abs(csr.vals)), np.abs(B), dtype=np.float64)
+    u = 1e-5 if dtype is None else 3 * 2.0 ** -8 + 1e-5
+    assert (np.abs(C - ref) <= u * l1 + 1e-5).all(), (name, schedule)
+
+
 @pytest.mark.parametrize("name", ["random", "empty_rows"])
 def test_spmm_coo_ell(name):
     csr = CASES[name]()
@@ -63,8 +84,10 @@ def test_spmm_bcsr_pallas_multi_ftile():
 
 
 def test_spmm_bcsr_rejects_misaligned():
+    # the kernel takes any R (masked to a 16-row tile) but needs a
+    # power-of-two C of at least 16
     csr = CASES["random"]()
-    bcsr = BCSR.from_csr(csr, 3, 64)
+    bcsr = BCSR.from_csr(csr, 3, 48)
     with pytest.raises(ValueError):
         spmm(bcsr, _B(csr.shape[1], 8), impl="pallas")
 
@@ -90,14 +113,13 @@ def test_sddmm_coo_matches_csr_order():
         rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("impl", ["xla", "pallas"])
 @pytest.mark.parametrize("f", [12, 300])
-def test_sddmm_bcsr(impl, f):
+def test_sddmm_bcsr(f):
     csr = CASES["block_diag"]()
     bcsr = BCSR.from_csr(csr, 8, 128)
     A = _B(csr.shape[0], f, seed=5)
     B = _B(csr.shape[1], f, seed=6)
-    out = np.asarray(sddmm(bcsr, A, B, impl=impl, block_f=128))
+    out = np.asarray(sddmm(bcsr, A, B))
     # oracle: dense sampled product at the *stored block* pattern
     dense_dots = A @ B.T
     R, Ccol = 8, 128
@@ -111,30 +133,6 @@ def test_sddmm_bcsr(impl, f):
         patch[:rr, :cc] = dense_dots[r0:r0 + rr, c0:c0 + cc]
         expect[k] = bcsr.vals[k] * patch
     assert count_mismatches(out, expect, atol=1e-3, rtol=1e-4) == 0
-
-
-def test_spmm_bcsr_pallas2_matches():
-    from loops_tpu.ops.spmm import SpMMOperator
-
-    csr = CASES["random"]()
-    bcsr = BCSR.from_csr(csr, 8, 128)
-    B = _B(csr.shape[1], 40)
-    op = SpMMOperator(bcsr, impl="pallas2", block_f=128)
-    C = np.asarray(op(B))
-    assert count_mismatches(C, reference.spmm(csr, B), 1e-3, 1e-4) == 0
-
-
-def test_spmm_bcsr_pallas2_bf16_stream():
-    from loops_tpu.ops.spmm import SpMMOperator
-
-    csr = CASES["random"]()
-    bcsr = BCSR.from_csr(csr, 8, 128)
-    B = _B(csr.shape[1], 24)
-    op = SpMMOperator(bcsr, impl="pallas2", block_f=128, dtype="bfloat16")
-    C = np.asarray(op(B))
-    ref = reference.spmm(csr, B)
-    rel = np.abs(C - ref).max() / max(np.abs(ref).max(), 1e-9)
-    assert rel < 5e-2, rel  # bf16 stream, f32 accumulate
 
 
 def test_spmm_csr_bf16_gather():
@@ -163,8 +161,8 @@ def test_spmm_group_mapped_hub_dense():
 
 
 def test_sddmm_bf16_close_to_f32():
-    """dtype="bfloat16" rounds operands (2.5x on TPU); scores must stay
-    within bf16 rounding of the f32 path."""
+    """dtype="bfloat16" rounds operands; scores must stay within bf16
+    rounding of the f32 path."""
     import numpy as np
 
     from loops_tpu.ops.sddmm import sddmm
@@ -180,52 +178,26 @@ def test_sddmm_bf16_close_to_f32():
     assert np.allclose(got, ref, atol=0.2, rtol=0.05)
 
 
-# ---------------------------------------------------------------- flat
-# Pallas SDDMM (ops/kernels/sddmm_flat.py): storage-order values, bf16
-# operand rounding, monotone A-side window expansion
+@pytest.mark.parametrize("dtype", [None, "bfloat16"])
+@pytest.mark.parametrize("name", ["uni_n2048_d8_s0", "pl_n4096_d4_a1.2",
+                                  "empty_n2048_e4"])
+def test_sddmm_battery(name, dtype):
+    """The fused XLA gather -> multiply -> reduce over battery matrices:
+    f32 to the reference, bf16 within two operand roundings."""
+    from loops_tpu.utils import battery
 
-def test_sddmm_flat_pallas_battery():
-    from loops_tpu.ops.kernels.sddmm_flat import flat_sddmm_pallas
-
+    csr = battery.build(name, max_rows=4096)
     rng = np.random.default_rng(5)
-    for name, builder in (
-            ("uniform", lambda: generate.random_csr(1024, 1024, 0.01,
-                                                    seed=2)),
-            ("rect", lambda: generate.random_csr(768, 1536, 0.01,
-                                                 seed=3)),
-            ("skewed", lambda: generate.skewed_csr(512, 512,
-                                                   heavy_rows=4)),
-    ):
-        csr = builder()
-        A = rng.normal(size=(csr.shape[0], 64)).astype(np.float32)
-        B = rng.normal(size=(csr.shape[1], 64)).astype(np.float32)
-        bufs, fn = flat_sddmm_pallas(csr, block_atoms=256)
-        out = np.asarray(fn(bufs, A, B))
-        ref = reference.sddmm(csr, A, B)
-        err = np.abs(out - ref).max() / max(np.abs(ref).max(), 1e-9)
-        assert out.shape == ref.shape, name
-        assert err < 2e-2, (name, err)
-
-
-def test_sddmm_flat_operator_fallbacks():
-    """f32 request and tiny matrices warn + fall back to XLA."""
-    import warnings
-
-    from loops_tpu.ops.sddmm import SDDMMOperator
-
-    csr = CASES["random"]()   # 40x36: smaller than any RW window
-    A = _B(csr.shape[0], 16, seed=1)
-    B = _B(csr.shape[1], 16, seed=2)
-    with warnings.catch_warnings(record=True) as w:
-        warnings.simplefilter("always")
-        op = SDDMMOperator(csr, impl="pallas", dtype="bfloat16")
-        assert any("falling back" in str(x.message) for x in w)
-    out = np.asarray(op._fn(A, B))
+    A = rng.normal(size=(csr.shape[0], 32)).astype(np.float32)
+    B = rng.normal(size=(csr.shape[1], 32)).astype(np.float32)
+    out = np.asarray(sddmm(csr, A, B, dtype=dtype))
     ref = reference.sddmm(csr, A, B)
-    assert count_mismatches(out, ref, atol=1e-1, rtol=1e-1) == 0
+    absref = reference.sddmm(generate_abs(csr), np.abs(A), np.abs(B))
+    tol = 1e-5 if dtype is None else 2 * 2.0 ** -8 + 1e-5
+    assert out.shape == ref.shape
+    assert (np.abs(out - ref) <= tol * absref + 1e-6).all(), name
 
-    with warnings.catch_warnings(record=True) as w:
-        warnings.simplefilter("always")
-        SDDMMOperator(csr, impl="pallas", dtype=None)
-        assert any("bf16" in str(x.message) or "exact" in str(x.message)
-                   for x in w)
+
+def generate_abs(csr):
+    from loops_tpu.formats import CSR
+    return CSR(csr.shape, csr.offsets, csr.indices, np.abs(csr.vals))

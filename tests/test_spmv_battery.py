@@ -46,6 +46,23 @@ def test_csr(name, schedule):
     _check(y, csr, x, f"csr/{schedule}/{name}")
 
 
+# structure families from utils/battery.py, at the smallest sizes
+FAMILIES = ("uni_n2048_d8_s0", "pl_n4096_d4_a1.6", "band_n2048_b16",
+            "empty_n2048_e16", "heavy_n4096_r16_k512")
+
+
+@pytest.mark.parametrize("schedule", SCHEDULES + ["auto"])
+@pytest.mark.parametrize("name", FAMILIES)
+def test_csr_structure_families(name, schedule):
+    """Every XLA schedule over the battery's structure families (the
+    matrices the sweep and the heuristic fit use)."""
+    from loops_tpu.utils import battery
+
+    csr = battery.build(name, max_rows=4096)
+    x = generate.make_input_vector(csr.shape[1])
+    _check(spmv(csr, x, schedule=schedule), csr, x, f"{name}/{schedule}")
+
+
 @pytest.mark.parametrize("schedule", SCHEDULES)
 @pytest.mark.parametrize("name", ["random", "empty_rows", "skewed"])
 def test_coo(name, schedule):
@@ -111,7 +128,7 @@ def test_unknown_schedule_rejected():
 def test_csr_f64_precision():
     """Value-type genericity (reference builds each example x {float,
     double} via LOOPS_VALUE_T, examples/spmv/CMakeLists.txt:28-56).
-    f64 runs through the same executors; on TPU it is emulated/slow but
+    f64 runs through the same executors; it is slower but
     correct — tests run on CPU."""
     import jax
 
@@ -132,33 +149,17 @@ def test_auto_schedule_selection():
     from loops_tpu.layout import CsrLayout
     from loops_tpu.schedule.plans import choose_schedule
 
-    from loops_tpu.schedule.plans import (
-        HEURISTIC_THRESHOLDS, HEURISTIC_THRESHOLDS_XLA,
-    )
+    from loops_tpu.schedule.plans import HEURISTIC_THRESHOLDS_XLA
 
-    # the round-3 full-sweep fit picks sorted_flat across both the skew
-    # and flat branches (oracle winner on 111/113 battery matrices);
-    # the small-tile branch is fitted shut (small=0).  The fit is
-    # on-chip: backendless default resolution picks the fitted table on
-    # TPU and the legacy four-schedule table elsewhere (interpret-mode
-    # Pallas would regress CPU 'auto' users ~70x)
+    # the default table routes skewed tiles to the degree-class planes
+    # and uniform ones to the flat schedule
     skewed = generate.skewed_csr(20, 40, heavy_rows=1, heavy_nnz=30)
-    assert choose_schedule(CsrLayout.from_csr(skewed),
-                           HEURISTIC_THRESHOLDS) == "sorted_flat"
     medium = generate.banded_csr(40, 40, band=8)
-    assert choose_schedule(CsrLayout.from_csr(medium),
-                           HEURISTIC_THRESHOLDS) == "sorted_flat"
-    import jax
-    expect_skew, expect_flat = (
-        ("sorted_flat", "sorted_flat")
-        if jax.default_backend() == "tpu"
-        else (HEURISTIC_THRESHOLDS_XLA["group"],
-              HEURISTIC_THRESHOLDS_XLA["flat"]))
-    assert choose_schedule(CsrLayout.from_csr(skewed)) == expect_skew
-    # tridiag is uniform enough to stay on the flat branch under both
-    # tables (banded_csr's edge rows trip the cv skew test off-TPU)
+    assert choose_schedule(CsrLayout.from_csr(skewed)) == \
+        HEURISTIC_THRESHOLDS_XLA["group"]
     flat_mat = generate.tridiag_csr(30)
-    assert choose_schedule(CsrLayout.from_csr(flat_mat)) == expect_flat
+    assert choose_schedule(CsrLayout.from_csr(flat_mat)) == \
+        HEURISTIC_THRESHOLDS_XLA["flat"]
     # the pre-fit structural branches stay exercisable via explicit
     # thresholds (the reference-analog defaults)
     legacy = dict(ratio=2.0, cv=0.5, small=4.0, flat="work_oriented")

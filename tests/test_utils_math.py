@@ -1,6 +1,7 @@
 """Utility tests (reference: unittests/test_util_math.cu incl. the
 overflow edge, test_util_range.cu iteration shapes)."""
 import numpy as np
+import pytest
 
 from loops_tpu.utils.math import ceil_div, round_down, round_up
 
@@ -42,3 +43,16 @@ def test_profile_smoke(tmp_path):
         assert os.path.isdir(d)
     except Exception:
         pass  # profiler optional in stripped environments
+
+
+@pytest.mark.parametrize("spans,expect", [
+    ([], 0),
+    ([(0, 10)], 10),
+    ([(0, 10), (5, 15)], 15),
+    ([(20, 30), (0, 10)], 20),
+    ([(0, 10), (2, 3), (10, 12)], 12),
+])
+def test_busy_ns_is_the_interval_union(spans, expect):
+    from loops_tpu.utils.trace import busy_ns
+
+    assert busy_ns(spans) == expect
